@@ -1,0 +1,281 @@
+"""The port's plain ANS0 kernels (kanzi_tpu_torch/ops/ans_cuda.py) against
+kanzi_tpu's JAX functions, on the same numpy inputs, at zero tolerance:
+these are integer codecs and bit-exactness is the contract.  Pallas kernels
+run in interpret mode, as tests/test_pallas_interpret.py runs them."""
+
+from __future__ import annotations
+
+import sys
+import threading
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from kanzi_tpu.entropy.utils import normalize_frequencies_batch
+from kanzi_tpu.ops import ans as jans
+from kanzi_tpu.ops import ans_pallas as P
+from kanzi_tpu.ops.ans_block import _chunk_stats
+from kanzi_tpu.utils.corpus import mixed_corpus
+from kanzi_tpu_torch.ops import ans_cuda as A
+
+CHUNK = 16384
+SCALE = 4096
+
+
+@pytest.fixture(autouse=True)
+def _interpret_mode(monkeypatch):
+    monkeypatch.setenv("KANZI_TPU_PALLAS_INTERPRET", "1")
+
+
+def _t(a):
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+def _chunk_from_hist(h, rng):
+    return rng.permutation(np.repeat(np.arange(256, dtype=np.uint8), h))
+
+
+def _hist_rows():
+    """29 pareto-skewed rows (as test_pallas_interpret) + single-symbol,
+    256-symbol and one-dominant-symbol (freq 4095) rows, 32 in all."""
+    rng = np.random.default_rng(1)
+    hists = []
+    for _ in range(29):
+        k = int(rng.integers(1, 257))
+        syms = rng.choice(256, k, replace=False)
+        w = rng.pareto(rng.uniform(0.2, 3.0), k) + 1e-9
+        h = np.zeros(256, np.int64)
+        h[syms] = 1 + rng.multinomial(CHUNK - k, w / w.sum())
+        hists.append(h)
+    single = np.zeros(256, np.int64)
+    single[77] = CHUNK
+    flat = np.full(256, CHUNK // 256, np.int64)
+    dominant = np.zeros(256, np.int64)
+    dominant[[3, 200]] = [CHUNK - 1, 1]
+    hists = np.array(hists + [single, flat, dominant])
+    chunks = np.stack([_chunk_from_hist(h, rng) for h in hists])
+    return hists, chunks
+
+
+def _edge_chunks():
+    """16 KiB chunks for the full encode: corpus text, skewed, uniform
+    random, all one byte (freq 4096, capped to 4095) and one dominant byte
+    (freq 4095 beside a freq-1 byte)."""
+    rng = np.random.default_rng(5)
+    corpus = mixed_corpus(2 * CHUNK, seed=7).reshape(2, CHUNK)
+    dominant = np.full(CHUNK, 9, np.uint8)
+    dominant[1234] = 10
+    return np.concatenate([corpus, np.stack([
+        (rng.zipf(1.4, CHUNK) % 230).astype(np.uint8),
+        rng.integers(0, 256, CHUNK).astype(np.uint8),
+        np.zeros(CHUNK, np.uint8),
+        dominant,
+    ])])
+
+
+@pytest.mark.parametrize("reference", ["pallas", "xla", "numpy"])
+def test_hist_norm_ref_matches_jax(reference):
+    hists, chunks = _hist_rows()
+    got = A.hist_norm_ref(_t(chunks)).numpy()
+    assert got.dtype == np.int32
+    if reference == "pallas":
+        want = P._normalize_freqs_pallas(P._hist16(jnp.asarray(chunks)), 14,
+                                         SCALE, rows_per_cell=32)
+    elif reference == "xla":
+        want = P._normalize_freqs_jax(P._hist16(jnp.asarray(chunks)), 14, SCALE)
+    else:
+        want = normalize_frequencies_batch(hists, CHUNK, SCALE)
+    assert np.array_equal(got, np.asarray(want))
+    assert np.all(got.sum(axis=1) == SCALE)
+
+
+def test_encode_scan_ref_matches_pallas():
+    rng = np.random.default_rng(2)
+    n, c = 128, 512
+    f = rng.integers(1, 4096, (n, 256)).astype(np.int64)
+    cum = np.minimum(np.cumsum(f, axis=1) - f, 4096 - f)
+    chunks = rng.integers(0, 256, (n, c), dtype=np.uint8)
+    tables = (np.minimum(f, 4095) | (cum << 12)).astype(np.int32)
+    wv, wf, st = P._scan_sub_fused(jnp.asarray(chunks), jnp.asarray(tables), rb=1)
+    words, flags, states = A.encode_scan_ref(_t(chunks), _t(tables))
+    assert np.array_equal(words.numpy().view(np.uint16), np.asarray(wv))
+    assert np.array_equal(flags.numpy(), np.asarray(wf))
+    assert np.array_equal(states.numpy(), np.asarray(st).reshape(4, n).T)
+
+
+def test_compact_ref_matches_pallas():
+    rng = np.random.default_rng(0)
+    n, nb = 8, 4
+    flag = (rng.random((n, nb * 128)) < 0.4).astype(np.uint8)
+    val = rng.integers(0, 65536, (n, nb * 128)).astype(np.uint16)
+    pay, cnt = P._compact2(jnp.asarray(val.reshape(n, nb, 128)),
+                           jnp.asarray(flag.reshape(n, nb, 128)))
+    payload, n_emit = A.compact_ref(_t(val.view(np.int16)), _t(flag))
+    assert np.array_equal(payload.numpy().view(np.uint16),
+                          np.asarray(pay).reshape(n, nb * 128))
+    assert np.array_equal(n_emit.numpy(), np.asarray(cnt).sum(axis=1))
+
+
+@pytest.fixture(scope="module")
+def decode_case():
+    """The four chunks of test_decode_inverts_encode_interpret, encoded by
+    the XLA reference: (chunks, payload bytes, n_emit, states, freq, cum)."""
+    rng = np.random.default_rng(5)
+    chunks = np.stack([
+        (rng.zipf(1.4, CHUNK) % 230).astype(np.uint8),
+        np.clip(rng.normal(100, 2, CHUNK), 0, 255).astype(np.uint8),
+        rng.integers(0, 256, CHUNK).astype(np.uint8),
+        np.zeros(CHUNK, np.uint8),
+    ])
+    freq, cum, _, _ = _chunk_stats(chunks)
+    p, ne, st = jans.ans0_encode_chunks(jnp.asarray(chunks),
+                                        jnp.asarray(freq, jnp.int32),
+                                        jnp.asarray(cum, jnp.int32))
+    p, ne, st = np.asarray(p), np.asarray(ne), np.asarray(st)
+    maxb = ((int(ne.max()) * 2 + 130) // 128 + 2) * 128
+    pay = np.zeros((4, maxb), np.uint8)
+    for i in range(4):
+        pay[i, :ne[i] * 2] = p[i, :ne[i]].astype(">u2").view(np.uint8)
+    return chunks, pay, ne, st, freq, cum
+
+
+@pytest.mark.parametrize("reference", ["pallas", "xla"])
+def test_decode_ref_matches_jax(decode_case, reference):
+    chunks, pay, ne, st, freq, cum = decode_case
+    dec = P.ans0_decode_chunks_pallas if reference == "pallas" else jans.ans0_decode_chunks
+    want_out, want_used = dec(jnp.asarray(pay), jnp.asarray(st, jnp.int32),
+                              jnp.asarray(freq, jnp.int32), jnp.asarray(cum, jnp.int32))
+    out, used = A.decode_ref(_t(pay), _t(np.full(4, pay.shape[1], np.int32)),
+                             _t(st.astype(np.int64)), _t(freq), _t(cum))
+    assert np.array_equal(out.numpy(), np.asarray(want_out))
+    assert np.array_equal(used.numpy(), np.asarray(want_used))
+    assert np.array_equal(out.numpy(), chunks)
+    assert np.array_equal(used.numpy(), ne * 2)
+
+
+def test_full_encode_matches_xla():
+    """hist_norm_ref -> tables -> encode_scan_ref -> compact_ref against
+    ops/ans.ans0_encode_chunks with XLA-normalised tables."""
+    chunks = _edge_chunks()
+    freq_x = np.asarray(P._normalize_freqs_jax(P._hist16(jnp.asarray(chunks)),
+                                               14, SCALE))
+    cum_x = np.cumsum(freq_x, axis=1) - freq_x
+    pay_x, ne_x, st_x = (np.asarray(a) for a in jans.ans0_encode_chunks(
+        jnp.asarray(chunks), jnp.asarray(freq_x, jnp.int32),
+        jnp.asarray(cum_x, jnp.int32)))
+
+    freq = A.hist_norm_ref(_t(chunks))
+    _, tables = A.make_tables(freq)
+    words, flags, states = A.encode_scan_ref(_t(chunks), tables)
+    payload, n_emit = A.compact_ref(words, flags)
+    assert np.array_equal(freq.numpy(), freq_x)
+    assert np.array_equal(n_emit.numpy(), ne_x)
+    assert np.array_equal(states.numpy(), st_x)
+    payload = payload.numpy().view(np.uint16)
+    for i in range(len(chunks)):
+        assert np.array_equal(payload[i, :ne_x[i]], pay_x[i, :ne_x[i]])
+        assert not payload[i, ne_x[i]:].any()
+
+    # the numpy-contract entry points give the same arrays
+    f2, p2, n2, s2 = A.ans0_encode_device(chunks, "cpu")
+    assert np.array_equal(f2, freq_x) and np.array_equal(n2, ne_x)
+    assert np.array_equal(s2, st_x) and np.array_equal(p2, payload)
+    p3, n3, s3 = A.ans0_encode_chunks(chunks, freq_x, cum_x, "cpu")
+    assert np.array_equal(p3, payload) and np.array_equal(n3, ne_x)
+    assert np.array_equal(s3, st_x)
+
+
+def test_encode_scan_ref_division_edge():
+    """f = 4095 dividing states just under 2^31 (quotients near 2^19), where
+    the TPU's f32 quotient needs its correction: encode_scan_ref against
+    ops/ans.ans0_encode_chunks on tables that drive the states there."""
+    n, c = 30, 4096
+    freq = np.zeros((n, 256), np.int64)
+    cum = np.zeros((n, 256), np.int64)
+    freq[:, :5] = [4095, 1, 3, 37, 700]
+    cum[:, 0] = 1
+    chunks = np.stack([np.random.default_rng(s).choice(
+        5, c, p=[0.5, 0.1, 0.1, 0.15, 0.15]).astype(np.uint8) for s in range(n)])
+    pay_x, ne_x, st_x = (np.asarray(a) for a in jans.ans0_encode_chunks(
+        jnp.asarray(chunks), jnp.asarray(freq, jnp.int32),
+        jnp.asarray(cum, jnp.int32)))
+    tables = _t((np.minimum(freq, 4095) | (cum << 12)).astype(np.int32))
+    words, flags, states = A.encode_scan_ref(_t(chunks), tables)
+    payload, n_emit = A.compact_ref(words, flags)
+    assert np.array_equal(states.numpy(), st_x)
+    assert np.array_equal(n_emit.numpy(), ne_x)
+    payload = payload.numpy().view(np.uint16)
+    for i in range(n):
+        assert np.array_equal(payload[i, :ne_x[i]], pay_x[i, :ne_x[i]])
+    # the edge was reached: a state within 2^21 of 2^31 divided by 4095
+    best = 0
+    for row in chunks:
+        st = [1 << 15] * 4
+        for t in range(c):
+            s = int(row[c - 1 - t])
+            f, x = min(int(freq[0, s]), 4095), st[t & 3]
+            if (x >> 19) >= f:
+                x >>= 16
+            if f == 4095:
+                best = max(best, x)
+            st[t & 3] = ((x // f) << 12) + x % f + int(cum[0, s])
+    assert best > (1 << 31) - (1 << 21)
+
+
+def _decode_scalar(pay, length, states, freq):
+    """Python-int oracle of one chunk's decode (no fixed width)."""
+    cum = np.cumsum(freq) - freq
+    lut = np.repeat(np.arange(256), freq)
+    st = [int(s) for s in states]
+    out = np.empty(CHUNK, np.uint8)
+    ptr = 0
+    for t in range(CHUNK // 4):
+        for j in range(4):
+            sym = int(lut[st[j] & 4095])
+            out[4 * t + 3 - j] = sym
+            st[j] = min(int(freq[sym]), 4095) * (st[j] >> 12) + (st[j] & 4095) - int(cum[sym])
+        for j in (3, 2, 1, 0):
+            if st[j] < (1 << 15):
+                b0 = int(pay[ptr]) if ptr < length else 0
+                b1 = int(pay[ptr + 1]) if ptr + 1 < length else 0
+                st[j] = (st[j] << 16) | (b0 << 8) | b1
+                ptr += 2
+    return out, ptr
+
+
+def test_decode_ref_unsigned_states_and_bounded_reads(decode_case):
+    """Stream states are 32-bit unsigned: values >= 2^31 must neither wrap
+    nor sign-extend, and reads stop at the row's real length."""
+    _, pay, ne, st, freq, cum = decode_case
+    states = st[:1].astype(np.int64)
+    states[0, [0, 2]] = [0xFFFFFFFF, (1 << 31) + 12345]
+    length = int(ne[0]) * 2 - 6
+    out, used = A.decode_ref(_t(pay[:1]), _t(np.array([length], np.int32)),
+                             _t(states), _t(freq[:1]), _t(cum[:1]))
+    want_out, want_used = _decode_scalar(pay[0], length, states[0], freq[0])
+    assert np.array_equal(out.numpy()[0], want_out)
+    assert int(used[0]) == want_used
+    assert want_used != length        # the host glue rejects this chunk
+
+
+def test_launch_counter_is_thread_safe():
+    """The stream's thread pool launches kernels from several threads at
+    once; no count may be lost."""
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        A.reset_launches()
+        threads = [threading.Thread(target=lambda: [A._count("ans0_decode")
+                                                    for _ in range(2000)])
+                   for _ in range(16)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+        assert not any(t.is_alive() for t in threads)
+        assert A.launches["ans0_decode"] == 16 * 2000
+    finally:
+        sys.setswitchinterval(old)
+        A.reset_launches()

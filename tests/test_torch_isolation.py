@@ -1,0 +1,72 @@
+"""kanzi_tpu_torch stands without jax, and never falls back to the CPU when
+asked for a card it does not have."""
+
+from __future__ import annotations
+
+import io
+import os
+import re
+import subprocess
+import sys
+
+import pytest
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.join(ROOT, "kanzi_tpu_torch")
+
+_ROUND_TRIP = """
+import io, sys
+from kanzi_tpu.utils.corpus import mixed_corpus
+from kanzi_tpu_torch.io.stream import CompressedInputStream, CompressedOutputStream
+data = mixed_corpus(40000, seed=3).tobytes()
+ctx = {"transform": "TEXT+UTF+BWT+RANK+ZRLT", "entropy": "ANS0", "blockSize": 1 << 16}
+buf = io.BytesIO()
+with CompressedOutputStream(buf, ctx, device="cpu") as cos:
+    cos.write(data)
+with CompressedInputStream(io.BytesIO(buf.getvalue()), {}, device="cpu") as cis:
+    assert cis.read(-1) == data
+assert "jax" not in sys.modules, sorted(m for m in sys.modules if m.startswith("jax"))
+print("ok")
+"""
+
+
+def test_level5_round_trip_without_jax():
+    """A fresh process: tests/conftest.py imports jax into this one."""
+    res = subprocess.run([sys.executable, "-c", _ROUND_TRIP], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "ok"
+
+
+def test_no_jax_import_in_package():
+    pat = re.compile(r"^\s*(import|from)\s+jax\b", re.M)
+    files = [os.path.join(d, f) for d, _, fs in os.walk(PKG) for f in fs
+             if f.endswith(".py")]
+    assert len(files) >= 8
+    for path in files:
+        with open(path) as fh:
+            assert not pat.search(fh.read()), path
+
+
+def test_cuda_device_without_card_raises():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    from kanzi_tpu_torch.io.stream import CompressedInputStream, CompressedOutputStream
+    ctx = {"transform": "NONE", "entropy": "ANS0"}
+    with pytest.raises(RuntimeError, match="is_available"):
+        CompressedOutputStream(io.BytesIO(), ctx, device=torch.device("cuda"))
+    with pytest.raises(RuntimeError, match="is_available"):
+        CompressedInputStream(io.BytesIO(b""), {}, device="cuda")
+    with pytest.raises(TypeError):
+        CompressedOutputStream(io.BytesIO(), ctx)      # device is required
+
+
+def test_wrappers_refuse_other_devices():
+    """A wrapper takes its plain version only for CPU tensors."""
+    from kanzi_tpu_torch.ops import ans_cuda as A
+    meta = torch.empty((2, A.CHUNK), dtype=torch.uint8, device="meta")
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        A.hist_norm(meta)
+    with pytest.raises(ValueError, match="unsupported device"):
+        A.ans0_encode_device(torch.zeros((1, A.CHUNK), dtype=torch.uint8).numpy(), "meta")
