@@ -12,9 +12,11 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "hist.cuh"
+
 namespace {
 
-constexpr int kChunk = 16384;
+constexpr int kChunk = kHistChunk;
 constexpr int kLogRange = 12;
 constexpr uint32_t kScale = 1u << kLogRange;
 constexpr uint32_t kAnsTop = 1u << 15;
@@ -83,40 +85,20 @@ __device__ int block_min(int v, int* smem) {
 // Replaces kanzi_tpu/ops/ans_pallas.py _hist16 (:278, an XLA nibble one-hot
 // einsum) and _norm_kernel (:342, the VMEM port of _normalize_freqs_jax :290).
 // One CTA of 256 threads per full 16 KiB chunk; thread k owns symbol k.
-// Bound on this card: the 16 KiB read per chunk (DRAM bytes) and, for skewed
-// chunks, shared-memory atomic contention on one bin.  Design: 16-byte loads,
-// one private 256-bin histogram per warp (8 KiB) so that contention stays
-// inside a warp, then the normalisation as block scans/reductions over the
-// 256 threads: the first-max tie rule (lowest index) and exactly five bounded
-// error-spreading rounds in symbol order, never a loop until done.  Valid
-// only for rows that sum to 2^14; the tail chunk stays on the host.
-
-constexpr int kHistThreads = 256;
+// The histogram is chunk_hist (hist.cuh, shared with huffman_hist); bound on
+// this card and its design are described there.  Then the normalisation as
+// block scans/reductions over the 256 threads: the first-max tie rule
+// (lowest index) and exactly five bounded error-spreading rounds in symbol
+// order, never a loop until done.  Valid only for rows that sum to 2^14; the
+// tail chunk stays on the host.
 
 __global__ void __launch_bounds__(kHistThreads)
 hist_norm_kernel(const uint8_t* __restrict__ chunks, int32_t* __restrict__ freq) {
   __shared__ int wh[kHistThreads / 32][256];
   __shared__ int red[kHistThreads / 32 + 1];
   const int k = threadIdx.x;
-  const int w = k >> 5;
   const size_t row = blockIdx.x;
-#pragma unroll
-  for (int i = 0; i < kHistThreads / 32; ++i) wh[i][k] = 0;
-  __syncthreads();
-  const uint4* src = reinterpret_cast<const uint4*>(chunks + row * kChunk);
-  for (int i = k; i < kChunk / 16; i += kHistThreads) {
-    const uint4 v = src[i];
-    const uint32_t words[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-#pragma unroll
-      for (int b = 0; b < 4; ++b) atomicAdd(&wh[w][(words[j] >> (8 * b)) & 255], 1);
-    }
-  }
-  __syncthreads();
-  int h = 0;
-#pragma unroll
-  for (int i = 0; i < kHistThreads / 32; ++i) h += wh[i][k];
+  const int h = chunk_hist(chunks + row * kChunk, wh);
 
   const bool nz = h > 0;
   int scaled = 0;

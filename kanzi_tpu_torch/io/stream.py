@@ -1,12 +1,14 @@
-"""Compressed streams whose ANS0 entropy stage runs on a torch device.
+"""Compressed streams whose entropy stages (ANS0, Huffman) run on a torch
+device.
 
 ``encode_block``/``decode_block`` are kanzi_tpu.io.stream's, line for line,
 except that they build their entropy coders with the port's factory and pass
-it the device; a later change may fold the two copies into one once the port
+it the device, and that the encoder's LZ/LZX stages parse on the host only
+(_host_lz); a later change may fold the two copies into one once the port
 is whole.  ``CompressedOutputStream``/``CompressedInputStream`` subclass
-kanzi_tpu's and override only the constructor (a required ``device``) and
-the two methods that call the block codec; header, framing, ordered commit
-and the thread pool are inherited.
+kanzi_tpu's and override only the constructor (a required ``device``), the
+two methods that call the block codec and the writer's device LZ hints;
+header, framing, ordered commit and the thread pool are inherited.
 
 The device is explicit: ``cuda`` runs the kernels, ``cpu`` their plain
 versions, and ``cuda`` without a card raises.
@@ -32,10 +34,44 @@ from kanzi_tpu.io.stream import (BITSTREAM_FORMAT_VERSION, BITSTREAM_TYPE,
                                  SMALL_BLOCK_SIZE, TRANSFORMS_MASK,
                                  _block_header_checksum)
 from kanzi_tpu.transforms import factory as transform_factory
+from kanzi_tpu.transforms import lz as _lz
+from kanzi_tpu.utils import native_transforms as _nt
 from kanzi_tpu.utils.xxhash import xxhash32, xxhash64
 
 from ..entropy import factory as entropy_factory
 from ..utils.device import check_device
+
+
+class _HostLZXCodec(_lz.LZXCodec):
+    """kanzi_tpu's LZ/LZX forward with its host C++ parse only.  The parent's
+    forward reads KANZI_TPU_DEVICE_LZ and then imports jax for its device
+    engine; the port's device LZ engine arrives with the LZX slice (ROADMAP
+    M4).  The port never hands it a device hint (see _device_lz_batch)."""
+
+    def forward(self, src: np.ndarray) -> np.ndarray:
+        src = np.asarray(src, dtype=np.uint8)
+        if src.size == 0:
+            return src.copy()
+        min_match = 0
+        dt = (self.ctx or {}).get("dataType", DataType.UNDEFINED)
+        if dt == DataType.DNA:
+            min_match = 6
+        elif dt == DataType.SMALL_ALPHABET:
+            raise TransformSkip("LZX: small alphabet")
+        res = _nt.lzx_forward_native(src, self.extra, min_match)
+        if res is None:
+            raise TransformSkip("LZX: native kernel unavailable")
+        if res.size == 0:
+            raise TransformSkip("LZX: no gain")
+        return res
+
+
+def _host_lz(seq) -> None:
+    """Give every LZ/LZX stage of ``seq`` (from kanzi_tpu's transform
+    factory) the host-only forward of _HostLZXCodec."""
+    for t in seq.transforms:
+        if type(getattr(t, "_delegate", None)) is _lz.LZXCodec:
+            t._delegate.__class__ = _HostLZXCodec
 
 
 def encode_block(block: np.ndarray, transform_type: int, entropy_type: int,
@@ -78,6 +114,7 @@ def encode_block(block: np.ndarray, transform_type: int, entropy_type: int,
             ctx["dataType"] = DataType.EXE
 
     seq = transform_factory.new_function(ctx, transform_type)
+    _host_lz(seq)
     try:
         buf = seq.forward(block)
     except TransformSkip:
@@ -237,11 +274,19 @@ def decode_block(payload: np.ndarray, nbits: int, transform_type: int,
 
 
 class CompressedOutputStream(_host.CompressedOutputStream):
-    """kanzi_tpu's stream writer with the ANS0 stage on ``device``."""
+    """kanzi_tpu's stream writer with the entropy stages (ANS0, Huffman) on
+    ``device``."""
 
     def __init__(self, os_: BinaryIO, ctx: dict, *, device) -> None:
         self.device = check_device(device)
         super().__init__(os_, ctx)
+
+    def _device_lz_batch(self, chunks):
+        """No device LZ hints: the port's device LZ engine arrives with the
+        LZX slice (ROADMAP M4); until then LZ and LZX run in kanzi_tpu's host
+        transforms.  kanzi_tpu's own method would import jax and run its JAX
+        engine under KANZI_TPU_DEVICE_LZ=1."""
+        return None
 
     def _process(self, nblocks: int) -> None:
         """kanzi_tpu's _process; its job calls this module's encode_block."""
@@ -288,7 +333,8 @@ class CompressedOutputStream(_host.CompressedOutputStream):
 
 
 class CompressedInputStream(_host.CompressedInputStream):
-    """kanzi_tpu's stream reader with the ANS0 stage on ``device``."""
+    """kanzi_tpu's stream reader with the entropy stages (ANS0, Huffman) on
+    ``device``."""
 
     def __init__(self, is_: BinaryIO, ctx: dict, *, device) -> None:
         self.device = check_device(device)

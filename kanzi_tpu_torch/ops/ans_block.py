@@ -19,8 +19,6 @@ decoder does (entropy/ans.py), where kanzi_tpu's device glue filled zeros.
 
 from __future__ import annotations
 
-import threading
-
 import numpy as np
 import torch
 
@@ -30,31 +28,10 @@ from kanzi_tpu.entropy import ans as hans
 from kanzi_tpu.entropy import utils as eu
 
 from . import ans_cuda
+from .glue import GLUE_LOCK, read_windowed
 
 CHUNK = ans_cuda.CHUNK
 LOG_RANGE = ans_cuda.LOG_RANGE
-_HEADER_WINDOW = 1024   # a chunk's alphabet + frequency header is < 530 bytes
-
-# The glue below is Python and numpy under the GIL.  When the stream's pool
-# threads interleave it, every numpy call hands the GIL to another thread,
-# which doubled its CPU time at 8 threads; run one block's glue at a time,
-# while the other threads' native work (transforms, the host's C++ coders)
-# goes on beside it.
-_GLUE_LOCK = threading.Lock()
-
-
-def _read_freqs_header(br: BitReader, lr: int):
-    """hans._read_freqs_header, parsed from a reader over the next
-    _HEADER_WINDOW bytes only: BitReader.read_bits_vec copies its whole
-    buffer on every call, which made a block's header parse quadratic."""
-    pos = br.read_count
-    skip = pos & 7
-    nbits = min(br.remaining + skip, _HEADER_WINDOW * 8)
-    sub = BitReader(br._data[pos >> 3:(pos >> 3) + _HEADER_WINDOW], nbits=nbits,
-                    bitpos=skip)
-    res = hans._read_freqs_header(sub, lr)
-    br.seek(pos + sub.read_count - skip)
-    return res
 
 
 def assemble_ans0_wire(bw: BitWriter, freq: np.ndarray, nsym: np.ndarray,
@@ -84,7 +61,7 @@ def ans0_encode(block: np.ndarray, bw: BitWriter, device: torch.device) -> int:
     The block's wire is packed into one segment under the lock, so that the
     caller's writer does not pack its thousands of small header segments
     outside it."""
-    with _GLUE_LOCK:
+    with GLUE_LOCK:
         wire = BitWriter()
         count = _encode(block, wire, device)
         arr, nbits = wire.getvalue_packed()
@@ -123,7 +100,7 @@ def _encode(block: np.ndarray, bw: BitWriter, device: torch.device) -> int:
 
 def ans0_decode(count: int, br: BitReader, device: torch.device) -> np.ndarray:
     """ANSRangeDecoder(order=0).decode with the full chunks on ``device``."""
-    with _GLUE_LOCK:
+    with GLUE_LOCK:
         return _decode(count, br, device)
 
 
@@ -147,7 +124,7 @@ def _decode(count: int, br: BitReader, device: torch.device) -> np.ndarray:
                                      BitStreamError.INVALID_STREAM)
             host_resume = (i, lr)
             break
-        alpha, freqs = _read_freqs_header(br, lr)
+        alpha, freqs = read_windowed(br, hans._read_freqs_header, lr)
         if len(alpha) == 0:
             raise BitStreamError("empty ANS alphabet",
                                  BitStreamError.INVALID_STREAM)

@@ -13,7 +13,8 @@ XLA op on this path:
 Each wrapper runs its plain version (``*_ref``, same signature) when its
 tensors lie on the CPU, and launches its kernel when they lie on a CUDA
 device, or raises: there is no fallback.  Each launch adds one to the
-wrapper's count in ``launches``.
+wrapper's count in ``launches`` (ops/launch.py, shared by every kernel
+of the port).
 
 The port's public op functions take and return the same numpy layouts and
 dtypes as their kanzi_tpu counterparts (chunks (N, C) u8, freq/cum (N, 256),
@@ -28,13 +29,15 @@ in the kernel.
 
 from __future__ import annotations
 
-import threading
-
 import numpy as np
 import torch
 
-from ..utils import cuda_build
 from ..utils.device import check_device
+# launches, reset_launches and _count are re-exported for the callers that
+# read or reset the counts through this module
+from .launch import (count as _count, i16 as _i16, launch as _launch,  # noqa: F401
+                     launches, register, require as _require, reset_launches,
+                     stream as _stream, to_device)
 
 ANS_TOP = 1 << 15
 LOG_RANGE = 12
@@ -43,49 +46,7 @@ CHUNK = 16384
 TOTAL_SHIFT = 14                 # full chunks: histogram rows sum to 2^14
 
 KERNELS = ("ans0_hist_norm", "ans0_encode_scan", "ans0_compact", "ans0_decode")
-launches = dict.fromkeys(KERNELS, 0)
-_COUNT_LOCK = threading.Lock()   # the stream's thread pool launches at once
-
-
-def reset_launches() -> None:
-    with _COUNT_LOCK:
-        for k in launches:
-            launches[k] = 0
-
-
-def _count(name: str) -> None:
-    with _COUNT_LOCK:
-        launches[name] += 1
-
-
-def _launch(name: str, *args) -> None:
-    err = getattr(cuda_build.load(), "kz_" + name)(*args)
-    if err != 0:
-        raise RuntimeError(f"{name}: kernel launch failed, cudaError {err}")
-    _count(name)
-
-
-def _require(t: torch.Tensor, dtype: torch.dtype, shape: tuple) -> None:
-    """Raise on what a kernel does not take: another device, dtype, shape,
-    a non-contiguous or a misaligned tensor."""
-    if t.device.type != "cuda":
-        raise ValueError(f"expected a CUDA tensor, got one on {t.device}")
-    if t.dtype != dtype:
-        raise TypeError(f"expected {dtype}, got {t.dtype}")
-    if t.dim() != len(shape) or any(s is not None and s != d
-                                    for s, d in zip(shape, t.shape)):
-        raise ValueError(f"expected shape {shape}, got {tuple(t.shape)}")
-    if not t.is_contiguous() or t.data_ptr() % 16:
-        raise ValueError("expected a contiguous, 16-byte aligned tensor")
-
-
-def _stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
-
-
-def _i16(v: torch.Tensor) -> torch.Tensor:
-    """Values in [0, 65536) as int16 bit patterns."""
-    return torch.where(v >= 32768, v - 65536, v).to(torch.int16)
+register(KERNELS)
 
 
 def _i32(v: torch.Tensor) -> torch.Tensor:
@@ -327,13 +288,6 @@ def decode(payload: torch.Tensor, lengths: torch.Tensor, states: torch.Tensor,
 # ---------------------------------------------------------------------------
 # numpy-contract entry points (the kanzi_tpu signatures plus a device)
 # ---------------------------------------------------------------------------
-
-def to_device(a: np.ndarray, device, dtype=None) -> torch.Tensor:
-    a = np.ascontiguousarray(a, dtype=dtype)
-    if not a.flags.writeable:
-        a = a.copy()
-    return torch.from_numpy(a).to(device)
-
 
 def encode_chunks_tensors(chunks: torch.Tensor):
     """Statistics + scan + compaction on ``chunks``' device: (freq, payload,

@@ -1,11 +1,13 @@
 """Build and load the package's CUDA kernels (kanzi_tpu_torch/csrc).
 
-``nvcc`` compiles every ``csrc/*.cu`` into one shared library with a plain C
-interface, which is loaded with ctypes; no PyTorch headers are compiled, so
-a build takes seconds.  The library is named by a hash of the sources and
-the flags, ``_build/libkanzi_ans0_<hash>.so``, so an edited source never
-loads a stale build.  Builds happen at first use, never at import, and are
-serialised across threads and processes by a file lock in ``_build/``.
+One ``nvcc`` per ``csrc/*.cu``, all started together, compiles each source
+to an object; one more links them into a shared library with a plain C
+interface, which is loaded with ctypes.  No PyTorch headers are compiled, so
+a build takes seconds.  The library is named by a hash of the sources (the
+``*.cuh`` headers included) and the flags, ``_build/libkanzi_torch_<hash>.so``,
+so an edited source never loads a stale build.  Builds happen at first use,
+never at import, and are serialised across threads and processes by a file
+lock in ``_build/``.
 """
 
 from __future__ import annotations
@@ -23,8 +25,9 @@ import time
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v"]
 
 _LOCK = threading.Lock()
 _LIB: ctypes.CDLL | None = None
@@ -42,6 +45,12 @@ _SIGNATURES = {
     "kz_ans0_compact": [_P, _P, _P, _P, _I, _I, _P],
     # payload, pitch, lengths, states, freq, cum, out, consumed, n, stream
     "kz_ans0_decode": [_P, ctypes.c_longlong, _P, _P, _P, _P, _P, _P, _I, _P],
+    # chunks, hist, n, stream
+    "kz_huffman_hist": [_P, _P, _I, _P],
+    # chunks, tbl, words, n_words, acc, nbits, n, stream
+    "kz_huffman_encode": [_P, _P, _P, _P, _P, _P, _I, _P],
+    # pay, bnd, adj, perm, syms, used, n, stream
+    "kz_huffman_decode": [_P, _P, _P, _P, _P, _P, _I, _P],
 }
 
 
@@ -64,15 +73,34 @@ def _sources() -> tuple[list[str], str]:
     return [f for f in files if f.endswith(".cu")], h.hexdigest()[:16]
 
 
+def _run_all(cmds: list[list[str]]) -> str:
+    """Run the commands side by side; return their output, or raise with it
+    if any failed."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True) for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    log = "".join(outs)
+    bad = [(c, p.returncode) for c, p in zip(cmds, procs) if p.returncode != 0]
+    if bad:
+        raise RuntimeError(f"nvcc failed: {bad}:\n{log}")
+    return log
+
+
 def _build(so: str, units: list[str]) -> None:
     global build_log
-    tmp = f"{so}.{os.getpid()}.{threading.get_ident()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *units]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    build_log = res.stdout + res.stderr
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{build_log}")
-    os.replace(tmp, so)
+    tag = f"{os.getpid()}.{threading.get_ident()}.tmp"
+    nvcc = _nvcc()
+    objs = [f"{so}.{os.path.basename(u)}.{tag}.o" for u in units]
+    try:
+        build_log = _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", o, u]
+                              for u, o in zip(units, objs)])
+        tmp = f"{so}.{tag}"
+        build_log += _run_all([[nvcc, *ARCH_FLAGS, "-shared", "-o", tmp, *objs]])
+        os.replace(tmp, so)
+    finally:
+        for o in objs:
+            if os.path.exists(o):
+                os.remove(o)
 
 
 def load() -> ctypes.CDLL:
@@ -85,7 +113,7 @@ def load() -> ctypes.CDLL:
             return _LIB
         t0 = time.perf_counter()
         units, digest = _sources()
-        so = os.path.join(BUILD_DIR, f"libkanzi_ans0_{digest}.so")
+        so = os.path.join(BUILD_DIR, f"libkanzi_torch_{digest}.so")
         os.makedirs(BUILD_DIR, exist_ok=True)
         with open(os.path.join(BUILD_DIR, "build.lock"), "w") as lockf:
             fcntl.flock(lockf, fcntl.LOCK_EX)

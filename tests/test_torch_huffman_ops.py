@@ -1,0 +1,222 @@
+"""The port's plain Huffman kernels (kanzi_tpu_torch/ops/huffman_cuda.py) and
+its decode tables (ops/huffman_block.py) against kanzi_tpu's JAX functions,
+on the same numpy inputs, at zero tolerance: the wire format leaves none.
+Pallas kernels run in interpret mode, as tests/test_pallas_interpret.py runs
+them; each runs once, in a module-scoped fixture."""
+
+from __future__ import annotations
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from kanzi_tpu.entropy.huffman import build_tables_batch
+from kanzi_tpu.ops import huffman_decode_pallas as HD
+from kanzi_tpu.ops import huffman_pallas as HE
+from kanzi_tpu_torch.ops import huffman_block as B
+from kanzi_tpu_torch.ops import huffman_cuda as H
+
+CHUNK = 16384
+STREAM = CHUNK // 4
+
+
+def _t(a):
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+def _fib_chunk(rng):
+    """Fibonacci-distributed frequencies: an unlimited code would be 19
+    bits deep, so the lengths hit the 12-bit limit."""
+    f = [1, 1]
+    while len(f) < 19:
+        f.append(f[-1] + f[-2])
+    f.append(CHUNK - sum(f))
+    return rng.permutation(np.repeat(np.arange(40, 60, dtype=np.uint8), f))
+
+
+def _chunks():
+    """zipf, one symbol, all 256 symbols, length-limited."""
+    rng = np.random.default_rng(11)
+    return np.stack([
+        (rng.zipf(1.3, CHUNK) % 256).astype(np.uint8),
+        np.full(CHUNK, 77, np.uint8),
+        rng.permutation(np.repeat(np.arange(256, dtype=np.uint8), CHUNK // 256)),
+        _fib_chunk(rng),
+    ])
+
+
+def _tables(chunks):
+    hists = np.stack([np.bincount(c, minlength=256) for c in chunks]).astype(np.int64)
+    sizes, codes, nsym = build_tables_batch(hists)
+    tbl = ((sizes << 12) | codes).astype(np.uint16).view(np.int32)
+    return hists, sizes, codes, nsym, tbl
+
+
+def _payload(words, n_words, acc, nbits):
+    """Each chunk's four streams, byte-aligned, at 6,656-byte strides."""
+    n = len(n_words) // 4
+    pay = np.zeros((n, H.PAY_WIDTH), np.uint8)
+    for r in range(4 * n):
+        w, p = int(n_words[r]), int(nbits[r])
+        data = words[r, :w].astype(">u2").tobytes()
+        if p:
+            nby = (p + 7) // 8
+            data += ((int(acc[r]) & ((1 << p) - 1)) << (8 * nby - p)).to_bytes(nby, "big")
+        i, j = divmod(r, 4)
+        pay[i, j * H.PAY_STRIDE:j * H.PAY_STRIDE + len(data)] = np.frombuffer(data, np.uint8)
+    return pay
+
+
+@pytest.fixture(scope="module")
+def case():
+    """The Pallas encode of the four chunks and the Pallas decode of its
+    wire, each run once (interpret mode)."""
+    chunks = _chunks()
+    hists, sizes, _, nsym, tbl = _tables(chunks)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("KANZI_TPU_PALLAS_INTERPRET", "1")
+        enc = tuple(np.asarray(a) for a in HE.huffman_encode_streams(
+            jnp.asarray(chunks), jnp.asarray(tbl)))
+        pay = _payload(*enc)
+        alphabets = [np.flatnonzero(h) for h in hists]
+        bnd, adj, perm = HD.build_decode_tables(list(sizes), alphabets)
+        dec = tuple(np.asarray(a) for a in HD.huffman_decode_chunks_pallas(
+            jnp.asarray(pay), jnp.asarray(bnd), jnp.asarray(adj), jnp.asarray(perm)))
+    return {"chunks": chunks, "sizes": sizes, "nsym": nsym, "tbl": tbl,
+            "alphabets": alphabets, "enc": enc, "pay": pay,
+            "tables": (bnd, adj, perm), "dec": dec}
+
+
+def test_case_covers_the_edges(case):
+    assert list(case["nsym"]) == [case["nsym"][0], 1, 256, 20]
+    assert case["sizes"][3].max() == 12          # the limit is reached
+    assert case["sizes"][0].max() > 8
+
+
+def test_encode_streams_ref_matches_pallas(case):
+    words, n_words, acc, nbits = H.encode_streams_ref(_t(case["chunks"]), _t(case["tbl"]))
+    w_p, nw_p, acc_p, nb_p = case["enc"]
+    assert np.array_equal(words.numpy().view(np.uint16), w_p)
+    assert np.array_equal(n_words.numpy(), nw_p)
+    assert np.array_equal(acc.numpy(), acc_p)
+    assert np.array_equal(nbits.numpy(), nb_p)
+    # the numpy-contract entry point gives the same arrays
+    for got, want in zip(H.huffman_encode_streams(case["chunks"], case["tbl"], "cpu"),
+                         case["enc"]):
+        assert np.array_equal(got, want)
+
+
+def test_decode_chunks_ref_matches_pallas(case):
+    bnd, adj, perm = case["tables"]
+    syms, used = H.decode_chunks_ref(_t(case["pay"]), _t(bnd), _t(adj), _t(perm))
+    syms_p, used_p = case["dec"]
+    assert np.array_equal(syms.numpy(), syms_p)
+    assert np.array_equal(used.numpy(), used_p)
+    _, n_words, _, nbits = case["enc"]
+    assert np.array_equal(syms.numpy(), case["chunks"])
+    assert np.array_equal(used.numpy().reshape(-1), 16 * n_words + nbits)
+    got = H.huffman_decode_chunks(case["pay"], bnd, adj, perm, "cpu")
+    assert np.array_equal(got[0], syms_p) and np.array_equal(got[1], used_p)
+
+
+def test_build_decode_tables_matches_reference(case):
+    got = B.build_decode_tables(list(case["sizes"]), case["alphabets"])
+    for a, b in zip(got, case["tables"]):
+        assert a.dtype == np.int32 and np.array_equal(a, b)
+    # random valid alphabets and lengths, lengths of absent symbols arbitrary
+    rng = np.random.default_rng(3)
+    hists = np.where(rng.random((24, 256)) < rng.random((24, 1)),
+                     rng.zipf(1.5, (24, 256)), 0).astype(np.int64)
+    hists[:, 0] += 1
+    sizes, _, _ = build_tables_batch(hists)
+    sizes = np.where(hists > 0, sizes, rng.integers(0, 13, sizes.shape))
+    alphabets = [np.flatnonzero(h) for h in hists]
+    for a, b in zip(B.build_decode_tables(list(sizes), alphabets),
+                    HD.build_decode_tables(list(sizes), alphabets)):
+        assert np.array_equal(a, b)
+
+
+def test_hist_ref_matches_bincount():
+    rng = np.random.default_rng(4)
+    chunks = np.concatenate([_chunks(), rng.integers(0, 256, (3, CHUNK), dtype=np.uint8)])
+    got = H.hist_ref(_t(chunks)).numpy()
+    assert got.dtype == np.int32
+    assert np.array_equal(got, np.stack([np.bincount(c, minlength=256) for c in chunks]))
+    assert np.array_equal(H.hist(_t(chunks)).numpy(), got)
+
+
+def _encode_scalar(stream, tbl16):
+    """Python-int oracle of one stream's packing (codes masked to length)."""
+    acc = nb = 0
+    words = []
+    for b in stream:
+        e = int(tbl16[b])
+        ln = e >> 12
+        acc = (acc << ln) | (e & 0xFFF & ((1 << ln) - 1))
+        nb += ln
+        if nb >= 16:
+            nb -= 16
+            words.append((acc >> nb) & 0xFFFF)
+            acc &= (1 << nb) - 1
+    return words, acc, nb
+
+
+def test_encode_streams_ref_any_table():
+    """Tables build_tables_batch never makes (lengths up to 15, codes wider
+    than their length): the plain version, which the kernel must equal on
+    every row, packs what the scalar definition packs."""
+    rng = np.random.default_rng(6)
+    chunks = rng.integers(0, 256, (2, CHUNK), dtype=np.uint8)
+    tbl16 = rng.integers(0, 1 << 16, (2, 256)).astype(np.uint16)
+    words, n_words, acc, nbits = H.encode_streams_ref(_t(chunks), _t(tbl16.view(np.int32)))
+    words = words.numpy().view(np.uint16)
+    for r in range(8):
+        i, j = divmod(r, 4)
+        w, a, nb = _encode_scalar(chunks[i, j * STREAM:(j + 1) * STREAM], tbl16[i])
+        assert int(n_words[r]) == len(w) and int(acc[r]) == a and int(nbits[r]) == nb
+        assert np.array_equal(words[r, :len(w)], w)
+        assert not words[r, len(w):].any()
+
+
+def _decode_scalar(seg, lens, syms):
+    bits = np.unpackbits(np.concatenate([seg, np.zeros(4, np.uint8)]))
+    pos = 0
+    out = []
+    for _ in range(STREAM):
+        v = int("".join(map(str, bits[pos:pos + 12])).ljust(12, "0"), 2)
+        out.append(syms[v])
+        pos += lens[v]
+    return out, pos
+
+
+def test_decode_chunks_ref_corrupt_stream(case):
+    """An incomplete code (one symbol of length 12): windows past the last
+    code decode to symbol 0 and advance 13 bits, and bits past the segment
+    read as 0, as in the scalar definition."""
+    sizes = np.full(256, 8, np.int64)
+    sizes[200] = 12
+    bnd, adj, perm = B.build_decode_tables([sizes], [np.array([200])])
+    rng = np.random.default_rng(8)
+    pay = rng.integers(0, 256, (1, H.PAY_WIDTH), dtype=np.uint8)
+    syms, used = H.decode_chunks_ref(_t(pay), _t(bnd), _t(adj), _t(perm))
+    lens, symt = (a.numpy()[0] for a in H._window_tables(_t(bnd), _t(adj), _t(perm)))
+    assert set(np.unique(symt)) == {0, 200} and lens.max() == 13
+    for j in range(4):
+        seg = pay[0, j * H.PAY_STRIDE:(j + 1) * H.PAY_STRIDE]
+        want, pos = _decode_scalar(seg, lens, symt)
+        assert np.array_equal(syms.numpy()[0, j * STREAM:(j + 1) * STREAM], want)
+        assert int(used[0, j]) == pos
+        assert pos + 12 > 8 * H.PAY_STRIDE      # the last windows ran past the segment
+
+
+def test_wrappers_refuse_other_devices():
+    meta = torch.empty((2, CHUNK), dtype=torch.uint8, device="meta")
+    for call in (lambda: H.hist(meta),
+                 lambda: H.encode_streams(meta, torch.empty((2, 128), dtype=torch.int32,
+                                                            device="meta"))):
+        with pytest.raises(ValueError, match="CUDA tensor"):
+            call()
+    with pytest.raises(ValueError, match="unsupported device"):
+        H.huffman_encode_streams(np.zeros((1, CHUNK), np.uint8),
+                                 np.zeros((1, 128), np.int32), "meta")

@@ -19,8 +19,9 @@ _ROUND_TRIP = """
 import io, sys
 from kanzi_tpu.utils.corpus import mixed_corpus
 from kanzi_tpu_torch.io.stream import CompressedInputStream, CompressedOutputStream
-data = mixed_corpus(40000, seed=3).tobytes()
-ctx = {"transform": "TEXT+UTF+BWT+RANK+ZRLT", "entropy": "ANS0", "blockSize": 1 << 16}
+transform, entropy, size, block = sys.argv[1:]
+data = mixed_corpus(int(size), seed=3).tobytes()
+ctx = {"transform": transform, "entropy": entropy, "blockSize": int(block)}
 buf = io.BytesIO()
 with CompressedOutputStream(buf, ctx, device="cpu") as cos:
     cos.write(data)
@@ -31,10 +32,18 @@ print("ok")
 """
 
 
-def test_level5_round_trip_without_jax():
-    """A fresh process: tests/conftest.py imports jax into this one."""
-    res = subprocess.run([sys.executable, "-c", _ROUND_TRIP], cwd=ROOT,
-                         capture_output=True, text=True, timeout=300)
+@pytest.mark.parametrize("transform,entropy,size,block", [
+    ("TEXT+UTF+BWT+RANK+ZRLT", "ANS0", 40000, 1 << 16),
+    ("DNA+LZ", "HUFFMAN", 300000, 1 << 18),
+    ("TEXT+UTF+PACK+MM+LZX", "HUFFMAN", 300000, 1 << 18),
+], ids=["level5", "level2", "level3"])
+def test_level5_round_trip_without_jax(transform, entropy, size, block):
+    """A fresh process: tests/conftest.py imports jax into this one.  The
+    Huffman levels' blocks hold enough full chunks for the device encode
+    and decode paths (their plain versions here)."""
+    res = subprocess.run([sys.executable, "-c", _ROUND_TRIP, transform, entropy,
+                          str(size), str(block)], cwd=ROOT, capture_output=True,
+                         text=True, timeout=300)
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip() == "ok"
 
