@@ -6,24 +6,39 @@ Run from the repository root on a machine with an NVIDIA H100:
     python3 chip_smoke.py [--quick]
 
 Phases, one line each; any failure raises and the exit code is not 0:
-  0  the card and its power limit, torch/CUDA versions, and whether
-     kanzi_tpu's native host library (stage 1 of level 5) loaded
-  1  build the CUDA kernels from kanzi_tpu_torch/csrc (ans0.cu, huffman.cu)
-  2  each kernel against its plain PyTorch version on the card, bit for bit,
-     on 256 chunks cut from mixed_corpus(16 MiB, seed=7) plus edge rows,
-     with both times (CUDA events, warm, median of 5) at 256 x 16 KiB
+  0  the card and its power limit, torch/CUDA versions, and whether the
+     port's native host library (kanzi_tpu_torch/_build, from native/) loaded
+  1  build the CUDA kernels from kanzi_tpu_torch/csrc (ans0.cu, huffman.cu,
+     lz_words.cu), one nvcc per source, in parallel
+  2  each kernel against its plain PyTorch version on the card, bit for bit:
+     the entropy kernels on 256 chunks cut from mixed_corpus(16 MiB, seed=7)
+     plus edge rows, timed at 256 x 16 KiB; lz_words on 8 x 4 MiB rows of
+     mixed_corpus(64 MiB, seed=12) (one flat dispatch of level 1), the last
+     row's last 1 KiB repeating the KiB before it, so the tail rule shows;
+     both times by CUDA events, warm, median of 5
   3  ANS0 alone (transform NONE), 64 MiB of mixed_corpus(seed=12), 4 MiB
-     blocks, jobs=8: the port's stream equals kanzi_tpu's host stream, the
-     port decodes it on the card, kanzi_tpu's host reader decodes it too
+     blocks, jobs=8: the port's stream on the card equals its host-coder
+     stream (device=None), the port decodes it on the card, the host coders
+     decode it too
   4  level 5 (TEXT+UTF+BWT+RANK+ZRLT + ANS0) on the same 64 MiB, same checks
   5  Huffman alone (transform NONE) on the same 64 MiB, same checks
   6  level 3 (TEXT+UTF+PACK+MM+LZX + HUFFMAN) on the same 64 MiB, same checks
-The launch counts are set to 0 just before each of phases 3-6 and read just
-after it.  Then the card line, one JSON line of the kernels, and the result
-line.
+  7  level 1 (LZX + NONE) on the same 64 MiB under KANZI_TPU_DEVICE_LZ=1:
+     the LZX parse runs on the card (ops/lz_sort.py); the stream decodes on
+     the card and with the host coders, its first two blocks equal the
+     port's CPU engine (device="cpu") on them, and it is at most 1.05 x the
+     size of the host parse's stream
+The launch counts are set to 0 just before each of phases 3-7 and read just
+after it.  Then the card line, one JSON line of the kernels (each with its
+bound: the larger of its bytes over 3.35 TB/s and its integer operations
+over 67 T/s), and the result line.
 ``--quick`` stops after phase 2 and prints no result line, for the first
-call after a kernel changes.  Without a card the script exits non-zero and
-prints no result.
+call after a kernel changes.  ``--profile`` runs phases 0-1, then one
+level-1 compress of 32 MiB with the LZX parse on the card under
+torch.profiler (device time by kernel family, the card's busy share) and
+once more with each engine stage timed on the host clock around a
+synchronize; it prints one JSON line and no result line.  Without a card
+the script exits non-zero and prints no result.
 """
 
 from __future__ import annotations
@@ -38,8 +53,10 @@ import sys
 import time
 
 CHUNK = 16384
+BLOCK = 4 << 20
 ANS0_SRC = "kanzi_tpu_torch/csrc/ans0.cu"
 HUFFMAN_SRC = "kanzi_tpu_torch/csrc/huffman.cu"
+LZ_WORDS_SRC = "kanzi_tpu_torch/csrc/lz_words.cu"
 # kernel -> (source, the TPU kernel it replaces, the others it also replaces)
 REPLACES = {
     "ans0_hist_norm": (ANS0_SRC, "kanzi_tpu/ops/ans_pallas.py:342",
@@ -53,9 +70,20 @@ REPLACES = {
                        ["kanzi_tpu/ops/ans_pallas.py:480"]),
     "huffman_decode": (HUFFMAN_SRC, "kanzi_tpu/ops/huffman_decode_pallas.py:50",
                        ["kanzi_tpu/ops/ans_pallas.py:47"]),
+    "lz_words": (LZ_WORDS_SRC, "kanzi_tpu/ops/lz_sort.py:107", []),
 }
 ANS0_KERNELS = ("ans0_hist_norm", "ans0_encode_scan", "ans0_compact", "ans0_decode")
 HUFFMAN_KERNELS = ("huffman_hist", "huffman_encode", "huffman_decode")
+LZ_KERNELS = ("lz_words",)
+# H100 SXM peaks (NVIDIA's data sheet, at 700 W): HBM bytes per second, and
+# the non-tensor 32-bit rate, taken for the kernels' integer operations
+PEAK_BYTES_S = 3.35e12
+PEAK_OPS_S = 67e12
+# integer operations per element of each kernel's main input, an estimate
+# from its inner loop (bytes bound every one of them by a wide margin)
+OPS_PER_ELEMENT = {"ans0_hist_norm": 4, "ans0_encode_scan": 24, "ans0_compact": 6,
+                   "ans0_decode": 24, "huffman_hist": 4, "huffman_encode": 12,
+                   "huffman_decode": 16, "lz_words": 24}
 
 
 def check(ok: bool, what: str) -> None:
@@ -87,6 +115,37 @@ def time_ms(fn, reps: int = 5) -> float:
     return statistics.median(times)
 
 
+def nbytes(*ts) -> int:
+    """Bytes of the tensors in ``ts`` (nested lists and tuples flattened)."""
+    total = 0
+    for t in ts:
+        if isinstance(t, (list, tuple)):
+            total += nbytes(*t)
+        else:
+            total += t.numel() * t.element_size()
+    return total
+
+
+def bound(name: str, inputs, outputs, elements: int) -> dict:
+    """The least time the card could take: each input read once and each
+    output written once at PEAK_BYTES_S, or the integer operations at
+    PEAK_OPS_S, whichever is longer."""
+    bytes_ms = nbytes(inputs, outputs) / PEAK_BYTES_S * 1e3
+    ops_ms = OPS_PER_ELEMENT[name] * elements / PEAK_OPS_S * 1e3
+    return {"bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+
+
+def timed(rec: dict, name: str, kern, plain, inputs, elements: int,
+          library=None) -> None:
+    """Times of the kernel, its plain version and (where one PyTorch call
+    computes the same function) that call, and the kernel's bound."""
+    out = kern()
+    rec[name].update(ms=time_ms(kern), plain_ms=time_ms(plain),
+                     library_ms=time_ms(library) if library else None,
+                     **bound(name, inputs, out, elements))
+
+
 def max_abs_err(got, want) -> int:
     """Largest |got - want| over tensors compared as integers."""
     import torch
@@ -111,7 +170,7 @@ def phase2_ans0(dev, rows) -> dict:
     import numpy as np
     import torch
 
-    from kanzi_tpu.entropy.utils import normalize_frequencies_batch
+    from kanzi_tpu_torch.entropy.utils import normalize_frequencies_batch
     from kanzi_tpu_torch.ops import ans_cuda as A
 
     chunks = np.concatenate([rows, edge_rows()])
@@ -159,17 +218,15 @@ def phase2_ans0(dev, rows) -> dict:
     xm, fm, cm, tm = x[:m], freq[:m], cum[:m], tables[:m]
     wm, flm, sm = words[:m], flags[:m], states[:m].to(torch.int64)
     pm, lm = pay[:m], lengths[:m]
-    cases = {
-        "ans0_hist_norm": (lambda: A.hist_norm(xm), lambda: A.hist_norm_ref(xm)),
-        "ans0_encode_scan": (lambda: A.encode_scan(xm, tm),
-                             lambda: A.encode_scan_ref(xm, tm)),
-        "ans0_compact": (lambda: A.compact(wm, flm), lambda: A.compact_ref(wm, flm)),
-        "ans0_decode": (lambda: A.decode(pm, lm, sm, fm, cm),
-                        lambda: A.decode_ref(pm, lm, sm, fm, cm)),
-    }
-    for name, (kern, plain) in cases.items():
-        rec[name]["ms"] = time_ms(kern)
-        rec[name]["plain_ms"] = time_ms(plain)
+    e = xm.numel()
+    timed(rec, "ans0_hist_norm", lambda: A.hist_norm(xm), lambda: A.hist_norm_ref(xm),
+          xm, e)
+    timed(rec, "ans0_encode_scan", lambda: A.encode_scan(xm, tm),
+          lambda: A.encode_scan_ref(xm, tm), (xm, tm), e)
+    timed(rec, "ans0_compact", lambda: A.compact(wm, flm), lambda: A.compact_ref(wm, flm),
+          (wm, flm), wm.numel())
+    timed(rec, "ans0_decode", lambda: A.decode(pm, lm, sm, fm, cm),
+          lambda: A.decode_ref(pm, lm, sm, fm, cm), (pm, lm, sm, fm, cm), e)
     return rec
 
 
@@ -194,7 +251,7 @@ def phase2_huffman(dev, rows) -> dict:
     import numpy as np
     import torch
 
-    from kanzi_tpu.entropy.huffman import build_tables_batch
+    from kanzi_tpu_torch.entropy.huffman import build_tables_batch
     from kanzi_tpu_torch.ops import huffman_block as HB
     from kanzi_tpu_torch.ops import huffman_cuda as H
 
@@ -244,23 +301,48 @@ def phase2_huffman(dev, rows) -> dict:
     m = 256
     xm, tm = x[:m], tbl[:m]
     pm, bm, am, qm = pay[:m], bnd[:m], adj[:m], perm[:m]
-    cases = {
-        "huffman_hist": (lambda: H.hist(xm), lambda: H.hist_ref(xm)),
-        "huffman_encode": (lambda: H.encode_streams(xm, tm),
-                           lambda: H.encode_streams_ref(xm, tm)),
-        "huffman_decode": (lambda: H.decode_chunks(pm, bm, am, qm),
-                           lambda: H.decode_chunks_ref(pm, bm, am, qm)),
-    }
-    for name, (kern, plain) in cases.items():
-        rec[name]["ms"] = time_ms(kern)
-        rec[name]["plain_ms"] = time_ms(plain)
+    e = xm.numel()
+    idx = xm.long()
+    ones = torch.ones_like(idx)
+    counts = torch.zeros((m, 256), dtype=torch.int64, device=dev)
+    timed(rec, "huffman_hist", lambda: H.hist(xm), lambda: H.hist_ref(xm), xm, e,
+          library=lambda: counts.zero_().scatter_add_(1, idx, ones))
+    timed(rec, "huffman_encode", lambda: H.encode_streams(xm, tm),
+          lambda: H.encode_streams_ref(xm, tm), (xm, tm), e)
+    timed(rec, "huffman_decode", lambda: H.decode_chunks(pm, bm, am, qm),
+          lambda: H.decode_chunks_ref(pm, bm, am, qm), (pm, bm, am, qm), e)
     return rec
 
 
-def phase2_kernels(dev) -> dict:
-    from kanzi_tpu.utils.corpus import mixed_corpus
+def phase2_lz_words(dev, data: bytes) -> dict:
+    """lz_words against its plain version on the card at one flat dispatch
+    of level 1: 8 rows of 4 MiB.  The last row's last 1 KiB repeats the KiB
+    before it, so its tail words (bytes past the row's end are the bytes
+    1,024 before them) must equal the words 1,024 positions earlier."""
+    import numpy as np
+    import torch
+
+    from kanzi_tpu_torch.ops import lz_words_cuda as L
+
+    rows = np.frombuffer(data[:8 * BLOCK], np.uint8).reshape(8, BLOCK).copy()
+    rows[7, BLOCK - 1024:] = rows[7, BLOCK - 2048:BLOCK - 1024]
+    x = torch.from_numpy(rows).to(dev)
+    got = L.lz_words(x)
+    want = L.lz_words_ref(x)
+    check(all(torch.equal(g, w) for g, w in zip(got, want)),
+          "lz_words differs from its plain version")
+    check(all(torch.equal(g[7, -15:], g[7, -1039:-1024]) for g in got),
+          "lz_words: the tail rule does not hold on the repeated last KiB")
+    rec = {"lz_words": {"max_abs_err": max_abs_err(got, want)}}
+    timed(rec, "lz_words", lambda: L.lz_words(x), lambda: L.lz_words_ref(x), x, x.numel())
+    return rec
+
+
+def phase2_kernels(dev, data: bytes) -> dict:
+    from kanzi_tpu_torch.utils.corpus import mixed_corpus
     rows = mixed_corpus(16 << 20, seed=7).reshape(-1, CHUNK)[::4]      # 256
-    return {**phase2_ans0(dev, rows), **phase2_huffman(dev, rows)}
+    return {**phase2_ans0(dev, rows), **phase2_huffman(dev, rows),
+            **phase2_lz_words(dev, data)}
 
 
 def _compress(cls, data: bytes, ctx: dict, **kw) -> bytes:
@@ -285,11 +367,10 @@ def stream_phase(label: str, data: bytes, transform: str, entropy: str, dev,
     chunks."""
     import torch
 
-    from kanzi_tpu.io import stream as host
     from kanzi_tpu_torch.io import stream as port
     from kanzi_tpu_torch.ops import launch
 
-    ctx = {"transform": transform, "entropy": entropy, "blockSize": 4 << 20, "jobs": 8}
+    ctx = {"transform": transform, "entropy": entropy, "blockSize": BLOCK, "jobs": 8}
     mb = len(data) / 1e6
     launch.reset_launches()
     t = time.perf_counter()
@@ -303,11 +384,11 @@ def stream_phase(label: str, data: bytes, transform: str, entropy: str, dev,
     launches = {k: launch.launches[k] for k in names}
     check(out == data, f"{label}: the port's decode differs from the input")
     t = time.perf_counter()
-    ref = _compress(host.CompressedOutputStream, data, ctx)
+    ref = _compress(port.CompressedOutputStream, data, ctx, device=None)
     host_c = time.perf_counter() - t
     check(blob == ref, f"{label}: the port's stream differs from the host stream")
     t = time.perf_counter()
-    out = _decompress(host.CompressedInputStream, blob, 8)
+    out = _decompress(port.CompressedInputStream, blob, 8, device=None)
     host_d = time.perf_counter() - t
     check(out == data, f"{label}: the host's decode of the port's stream differs")
     check(all(v > 0 for v in launches.values()), f"{label}: a kernel never ran: {launches}")
@@ -322,9 +403,146 @@ def stream_phase(label: str, data: bytes, transform: str, entropy: str, dev,
             "launches": launches}
 
 
+def first_frames(blob: bytes, k: int) -> list:
+    """The first ``k`` block frames of a stream: (block id, bit count,
+    payload bytes); a level-1 payload is the block header and its LZX
+    section bytes."""
+    from kanzi_tpu_torch.io import stream as port
+    with port.CompressedInputStream(io.BytesIO(blob), {}, device=None) as cis:
+        frames = [cis._frame_next() for _ in range(k)]
+    return [(bid, nbits, payload.tobytes()) for bid, payload, nbits in frames]
+
+
+def phase7_level1(data: bytes, dev, kern: dict) -> dict:
+    """Level 1 (LZX + NONE) with the LZX parse on the card under
+    KANZI_TPU_DEVICE_LZ=1, against the host parse (device=None, which
+    ignores the variable).  The launch counts are set to 0 just before the
+    port's compress and read just after it."""
+    import torch
+
+    from kanzi_tpu_torch.io import stream as port
+    from kanzi_tpu_torch.ops import launch
+
+    ctx = {"transform": "LZX", "entropy": "NONE", "blockSize": BLOCK, "jobs": 8}
+    mb = len(data) / 1e6
+    os.environ["KANZI_TPU_DEVICE_LZ"] = "1"
+    try:
+        launch.reset_launches()
+        t = time.perf_counter()
+        blob = _compress(port.CompressedOutputStream, data, ctx, device=dev)
+        torch.cuda.synchronize()
+        port_c = time.perf_counter() - t
+        launches = {k: launch.launches[k] for k in LZ_KERNELS}
+        t = time.perf_counter()
+        head = _compress(port.CompressedOutputStream, data[:2 * BLOCK], ctx, device="cpu")
+        cpu_s = time.perf_counter() - t
+    finally:
+        del os.environ["KANZI_TPU_DEVICE_LZ"]
+    check(all(v > 0 for v in launches.values()), f"level 1: lz_words never ran: {launches}")
+    check(first_frames(blob, 2) == first_frames(head, 2),
+          "level 1: the first two blocks differ from the port's CPU engine")
+    t = time.perf_counter()
+    out = _decompress(port.CompressedInputStream, blob, 8, device=dev)
+    torch.cuda.synchronize()
+    port_d = time.perf_counter() - t
+    check(out == data, "level 1: the port's decode on the card differs from the input")
+    t = time.perf_counter()
+    out = _decompress(port.CompressedInputStream, blob, 8, device=None)
+    host_d = time.perf_counter() - t
+    check(out == data, "level 1: the host coders' decode differs from the input")
+    t = time.perf_counter()
+    ref = _compress(port.CompressedOutputStream, data, ctx, device=None)
+    host_c = time.perf_counter() - t
+    check(len(blob) <= 1.05 * len(ref),
+          f"level 1: {len(blob)} B is more than 1.05 x the host parse's {len(ref)} B")
+    return {"bytes_in": len(data), "bytes_out": len(blob), "host_bytes_out": len(ref),
+            "device_share": {"compress": launches["lz_words"] * kern["lz_words"]["ms"]
+                             / 1e3 / port_c},
+            "compress_mb_s": {"port": mb / port_c, "host": mb / host_c},
+            "decompress_mb_s": {"port": mb / port_d, "host": mb / host_d},
+            "cpu_engine_s": cpu_s, "launches": launches}
+
+
+def _family(name: str) -> str:
+    """Kernel family of a device event, for the level-1 profile."""
+    low = name.lower()
+    if "memcpy" in low or "memset" in low:
+        return "copies"
+    if "lz_words" in low:
+        return "lz_words"
+    if "sort" in low:
+        return "sorts"
+    if "gather" in low or "scatter" in low or "index" in low:
+        return "gathers and scatters"
+    return "elementwise and reductions"
+
+
+def profile_level1(data: bytes, dev) -> dict:
+    """One level-1 compress of ``data`` with the LZX parse on the card,
+    under torch.profiler; then a second run with the engine's stages timed
+    on the host clock, each between two synchronizes (which removes their
+    overlap, so the stage times are an upper bound of each)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from kanzi_tpu_torch.io import stream as port
+    from kanzi_tpu_torch.ops import lz_sort as T
+
+    ctx = {"transform": "LZX", "entropy": "NONE", "blockSize": BLOCK, "jobs": 8}
+    stages = {"match (lz_words, sorts, probes)": "_match_flat",
+              "parse (two 64-step walks, scan, compaction)": "_parse_stage",
+              "token fetch to the host": "_fetch_tokens",
+              "emission (host C++, 2 threads)": "_emit_block"}
+    saved = {f: getattr(T, f) for f in stages.values()}
+    os.environ["KANZI_TPU_DEVICE_LZ"] = "1"
+    try:
+        _compress(port.CompressedOutputStream, data, ctx, device=dev)     # warm
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t = time.perf_counter()
+            _compress(port.CompressedOutputStream, data, ctx, device=dev)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+        fam: dict[str, float] = {}
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:
+                k = _family(e.name)
+                fam[k] = fam.get(k, 0.0) + e.time_range.elapsed_us() / 1e3
+        spent = dict.fromkeys(stages, 0.0)
+
+        def timed_stage(label, fn):
+            def run(*a, **kw):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                res = fn(*a, **kw)
+                torch.cuda.synchronize()
+                spent[label] += time.perf_counter() - t0
+                return res
+            return run
+
+        for label, f in stages.items():
+            setattr(T, f, timed_stage(label, saved[f]))
+        t = time.perf_counter()
+        _compress(port.CompressedOutputStream, data, ctx, device=dev)
+        torch.cuda.synchronize()
+        wall2 = time.perf_counter() - t
+    finally:
+        for f, fn in saved.items():
+            setattr(T, f, fn)
+        del os.environ["KANZI_TPU_DEVICE_LZ"]
+    return {"bytes_in": len(data), "wall_ms": wall * 1e3,
+            "device_ms": sum(fam.values()), "busy_share": sum(fam.values()) / (wall * 1e3),
+            "device_ms_by_family": dict(sorted(fam.items(), key=lambda kv: -kv[1])),
+            "staged_wall_ms": wall2 * 1e3,
+            "staged_ms": {k: v * 1e3 for k, v in spent.items()}}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--quick", action="store_true", help="stop after phase 2")
+    ap.add_argument("--profile", action="store_true",
+                    help="profile one level-1 compress after phase 1, then stop")
     args = ap.parse_args()
 
     import torch
@@ -332,17 +550,16 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False: no card", file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    from kanzi_tpu.utils import native
-    from kanzi_tpu.utils.corpus import mixed_corpus
-    from kanzi_tpu_torch.utils import cuda_build
+    from kanzi_tpu_torch.utils import cuda_build, native
+    from kanzi_tpu_torch.utils.corpus import mixed_corpus
 
     dev = torch.device("cuda")
     card = card_line()
     print(f"phase 0: card {card}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"python {sys.version.split()[0]}, {torch.cuda.device_count()} device(s)")
     if native.get_lib() is None:
-        raise RuntimeError("kanzi_tpu's native host library did not load (g++ missing?)")
-    print("phase 0: kanzi_tpu native host library loaded")
+        raise RuntimeError("the port's native host library did not load (g++ missing?)")
+    print("phase 0: the port's native host library loaded")
 
     cuda_build.load()
     srcs = sorted(f for f in os.listdir(cuda_build.SRC_DIR) if f.endswith((".cu", ".cuh")))
@@ -353,17 +570,23 @@ def main() -> int:
             print("phase 1:   " + line.strip())
 
     t = time.perf_counter()
-    kern = phase2_kernels(dev)
+    data = mixed_corpus(64 << 20, seed=12).tobytes()
+    print(f"phase 2: corpus of {len(data)} B made in {time.perf_counter() - t:.1f} s")
+    if args.profile:
+        print(card_line())
+        print(json.dumps({"level1_profile": profile_level1(data[:32 << 20], dev)}))
+        return 0
+    t = time.perf_counter()
+    kern = phase2_kernels(dev, data)
     for name, r in kern.items():
-        print(f"phase 2: {name}: bit-equal to its plain version; "
-              f"kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms at 256 x 16 KiB")
+        lib = "" if r["library_ms"] is None else f", library call {r['library_ms']:.4f} ms"
+        print(f"phase 2: {name}: bit-equal to its plain version; kernel {r['ms']:.4f} ms, "
+              f"plain {r['plain_ms']:.4f} ms{lib}, bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']}) at {'8 x 4 MiB' if name in LZ_KERNELS else '256 x 16 KiB'}")
     print(f"phase 2: done in {time.perf_counter() - t:.1f} s")
     if args.quick:
         return 0
 
-    t = time.perf_counter()
-    data = mixed_corpus(64 << 20, seed=12).tobytes()
-    print(f"phase 3: corpus of {len(data)} B made in {time.perf_counter() - t:.1f} s")
     launches = dict.fromkeys(REPLACES, 0)
     for label, transform, entropy, names in (
             ("phase 3: ANS0 alone", "NONE", "ANS0", ANS0_KERNELS),
@@ -382,13 +605,25 @@ def main() -> int:
               f"{r['device_share']['compress']:.4f} decompress "
               f"{r['device_share']['decompress']:.4f}; launches {r['launches']}; "
               f"{time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    r = phase7_level1(data, dev, kern)
+    launches.update(r["launches"])
+    print(f"phase 7: level 1: {r['bytes_in']} B -> {r['bytes_out']} B with the LZX parse on "
+          f"the card, host parse {r['host_bytes_out']} B; first two blocks equal the CPU "
+          f"engine's ({r['cpu_engine_s']:.1f} s); compress MB/s port "
+          f"{r['compress_mb_s']['port']:.2f} host parse {r['compress_mb_s']['host']:.2f}; "
+          f"decompress MB/s port {r['decompress_mb_s']['port']:.2f} host "
+          f"{r['decompress_mb_s']['host']:.2f}; lz_words share of the port's compress "
+          f"(estimate) {r['device_share']['compress']:.4f}; launches {r['launches']}; "
+          f"{time.perf_counter() - t:.1f} s")
     check(all(v > 0 for v in launches.values()), f"launches {launches}")
 
     kernels = []
     for name, (src, rep, also) in REPLACES.items():
         k = {"name": name, "route": "cuda", "source": src, "replaces": rep,
-             "launches": launches[name], "max_abs_err": kern[name]["max_abs_err"],
-             "ms": kern[name]["ms"], "plain_ms": kern[name]["plain_ms"]}
+             "launches": launches[name],
+             **{key: kern[name][key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                                  "bound_by", "library_ms")}}
         if also:
             k["also_replaces"] = also
         kernels.append(k)

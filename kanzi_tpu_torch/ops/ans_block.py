@@ -1,10 +1,10 @@
 """Host glue of the ANS0 stage on a torch device: the exact ANSRangeEncoder
-wire bytes (kanzi_tpu/entropy/ans.py), with the statistics, scan and
-compaction in the kernels of ops/ans_cuda.py.
+wire bytes (entropy/ans.py), with the statistics, scan and compaction in the
+kernels of ops/ans_cuda.py.
 
 Counterpart of kanzi_tpu/ops/ans_block.py (assemble_ans0_wire, ans0_encode,
-ans0_decode), written again in numpy here because that module imports jax.
-The device/host split is the reference's:
+ans0_decode), written again in numpy.  The device/host split is the
+reference's:
 
   host:   wire headers and varints; blocks of at most 32 bytes (raw bytes);
           the tail chunk (< 16 KiB); on decode, single-symbol chunks (header
@@ -22,10 +22,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from kanzi_tpu.core.bits import BitReader, BitWriter
-from kanzi_tpu.core.errors import BitStreamError
-from kanzi_tpu.entropy import ans as hans
-from kanzi_tpu.entropy import utils as eu
+from ..core.bits import BitReader, BitWriter
+from ..core.errors import BitStreamError
+from ..entropy import ans as hans
+from ..entropy import utils as eu
 
 from . import ans_cuda
 from .glue import GLUE_LOCK, read_windowed

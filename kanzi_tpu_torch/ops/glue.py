@@ -6,7 +6,7 @@ from __future__ import annotations
 
 import threading
 
-from kanzi_tpu.core.bits import BitReader
+from ..core.bits import BitReader
 
 HEADER_WINDOW = 1024   # an ANS0 chunk header is < 530 bytes, a Huffman one < 300
 

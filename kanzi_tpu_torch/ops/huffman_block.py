@@ -1,14 +1,14 @@
 """Host glue of the Huffman stage on a torch device: the exact
-HuffmanEncoder/HuffmanDecoder wire (kanzi_tpu/entropy/huffman.py), with the
+HuffmanEncoder/HuffmanDecoder wire (entropy/huffman.py), with the
 histograms, the code packing and the decode of the full 16 KiB chunks in the
 kernels of ops/huffman_cuda.py.
 
 Counterpart of kanzi_tpu's HuffmanEncoder._encode_full_chunks_tpu, of the
-device branch of HuffmanDecoder.decode with _device_decode_batch, and of
-ops/huffman_decode_pallas.build_decode_tables, written again here because
-those modules import jax.  The device/host split is the reference's:
+device branch of its HuffmanDecoder.decode with _device_decode_batch, and of
+ops/huffman_decode_pallas.build_decode_tables, written again here.  The
+device/host split is the reference's:
 
-  host:   code tables (kanzi_tpu's build_tables_batch, native C++), chunk
+  host:   code tables (entropy/huffman.py build_tables_batch, native C++), chunk
           headers and varints; the tail chunk (< 16 KiB); on decode, the
           header parse and single-symbol chunks
   device: the histograms and the code packing of the full chunks, and the
@@ -26,11 +26,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from kanzi_tpu.core.bits import BitReader, BitWriter
-from kanzi_tpu.core.errors import BitStreamError
-from kanzi_tpu.entropy import huffman as hhuf
-from kanzi_tpu.entropy import utils as eu
-from kanzi_tpu.entropy.expgolomb import ExpGolombEncoder
+from ..core.bits import BitReader, BitWriter
+from ..core.errors import BitStreamError
+from ..entropy import huffman as hhuf
+from ..entropy import utils as eu
+from ..entropy.expgolomb import ExpGolombEncoder
 
 from . import huffman_cuda
 from .glue import GLUE_LOCK, read_windowed

@@ -51,6 +51,8 @@ _SIGNATURES = {
     "kz_huffman_encode": [_P, _P, _P, _P, _P, _P, _I, _P],
     # pay, bnd, adj, perm, syms, used, n, stream
     "kz_huffman_decode": [_P, _P, _P, _P, _P, _P, _I, _P],
+    # bufs, w0, w1, w2, w3, nb, n, stream
+    "kz_lz_words": [_P, _P, _P, _P, _P, _I, _I, _P],
 }
 
 

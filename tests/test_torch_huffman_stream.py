@@ -2,7 +2,8 @@
 streams at levels 2 and 3 and Huffman alone against kanzi_tpu's host streams
 and frozen golden bytes, byte for byte, each side decoding the other's; its
 decoder against corrupt streams (reject or decode exactly); and its streams
-under KANZI_TPU_DEVICE_LZ=1, which must not reach jax."""
+under KANZI_TPU_DEVICE_LZ=1, which run the port's own device LZ engine,
+without jax or kanzi_tpu, and equal kanzi_tpu's device-LZ streams."""
 
 from __future__ import annotations
 
@@ -15,10 +16,10 @@ import numpy as np
 import pytest
 
 from kanzi_tpu.app.block_compressor import LEVELS, BlockCompressor
-from kanzi_tpu.core.bits import BitReader, BitWriter
-from kanzi_tpu.core.errors import BitStreamError
-from kanzi_tpu.entropy import utils as eu
-from kanzi_tpu.entropy.expgolomb import ExpGolombEncoder
+from kanzi_tpu_torch.core.bits import BitReader, BitWriter
+from kanzi_tpu_torch.core.errors import BitStreamError
+from kanzi_tpu_torch.entropy import utils as eu
+from kanzi_tpu_torch.entropy.expgolomb import ExpGolombEncoder
 from kanzi_tpu.io import stream as host
 from kanzi_tpu.utils.corpus import mixed_corpus
 from kanzi_tpu_torch.io.stream import CompressedInputStream, CompressedOutputStream
@@ -167,29 +168,36 @@ def test_bad_header_rejected(lengths, match):
 
 _LZX_STREAM = """
 import io, sys
-from kanzi_tpu.utils.corpus import mixed_corpus
+from kanzi_tpu_torch.utils.corpus import mixed_corpus
 from kanzi_tpu_torch.io.stream import CompressedOutputStream
 data = mixed_corpus(120000, seed=4).tobytes()
 buf = io.BytesIO()
 ctx = {"transform": "LZX", "entropy": "HUFFMAN", "blockSize": 1 << 16}
 with CompressedOutputStream(buf, ctx, device="cpu") as cos:
     cos.write(data)
-assert "jax" not in sys.modules, sorted(m for m in sys.modules if m.startswith("jax"))
+loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "kanzi_tpu"))
+assert not loaded, loaded
 sys.stdout.write(buf.getvalue().hex())
 """
 
 
 def test_device_lz_variable_does_not_reach_jax(monkeypatch):
-    """kanzi_tpu's stream imports jax and runs its device LZ engine under
-    KANZI_TPU_DEVICE_LZ=1; the port's keeps LZX on the host, in a fresh
-    process (tests/conftest.py imports jax into this one)."""
-    env = dict(os.environ, KANZI_TPU_DEVICE_LZ="1", KANZI_TPU_PALLAS_INTERPRET="1")
+    """Under KANZI_TPU_DEVICE_LZ=1 the port's writer runs its own device LZ
+    engine (ops/lz_sort.py, on the plain versions for device=cpu), in a
+    fresh process that loads neither jax nor kanzi_tpu (tests/conftest.py
+    imports jax into this one).  Its stream equals kanzi_tpu's under the
+    same variable, with the Pallas word kernel in interpret mode, and
+    differs from the host parse's."""
+    env = dict(os.environ, KANZI_TPU_DEVICE_LZ="1")
+    env.pop("KANZI_TPU_PALLAS_INTERPRET", None)
     res = subprocess.run([sys.executable, "-c", _LZX_STREAM], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr
-    monkeypatch.delenv("KANZI_TPU_DEVICE_LZ", raising=False)
-    monkeypatch.delenv("KANZI_TPU_PALLAS_INTERPRET", raising=False)
     data = mixed_corpus(120000, seed=4).tobytes()
-    ref = _host_compress(data, {"transform": "LZX", "entropy": "HUFFMAN",
-                                "blockSize": 1 << 16})
+    ctx = {"transform": "LZX", "entropy": "HUFFMAN", "blockSize": 1 << 16}
+    monkeypatch.setenv("KANZI_TPU_DEVICE_LZ", "1")
+    monkeypatch.setenv("KANZI_TPU_PALLAS_INTERPRET", "1")
+    ref = _host_compress(data, ctx)
     assert bytes.fromhex(res.stdout) == ref
+    monkeypatch.delenv("KANZI_TPU_DEVICE_LZ")
+    assert _host_compress(data, ctx) != ref

@@ -1,5 +1,5 @@
-"""kanzi_tpu_torch stands without jax, and never falls back to the CPU when
-asked for a card it does not have."""
+"""kanzi_tpu_torch stands on its own, without jax and without kanzi_tpu, and
+never falls back to the CPU when asked for a card it does not have."""
 
 from __future__ import annotations
 
@@ -17,7 +17,7 @@ PKG = os.path.join(ROOT, "kanzi_tpu_torch")
 
 _ROUND_TRIP = """
 import io, sys
-from kanzi_tpu.utils.corpus import mixed_corpus
+from kanzi_tpu_torch.utils.corpus import mixed_corpus
 from kanzi_tpu_torch.io.stream import CompressedInputStream, CompressedOutputStream
 transform, entropy, size, block = sys.argv[1:]
 data = mixed_corpus(int(size), seed=3).tobytes()
@@ -27,23 +27,27 @@ with CompressedOutputStream(buf, ctx, device="cpu") as cos:
     cos.write(data)
 with CompressedInputStream(io.BytesIO(buf.getvalue()), {}, device="cpu") as cis:
     assert cis.read(-1) == data
-assert "jax" not in sys.modules, sorted(m for m in sys.modules if m.startswith("jax"))
+loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "kanzi_tpu"))
+assert not loaded, loaded
 print("ok")
 """
 
 
-@pytest.mark.parametrize("transform,entropy,size,block", [
-    ("TEXT+UTF+BWT+RANK+ZRLT", "ANS0", 40000, 1 << 16),
-    ("DNA+LZ", "HUFFMAN", 300000, 1 << 18),
-    ("TEXT+UTF+PACK+MM+LZX", "HUFFMAN", 300000, 1 << 18),
-], ids=["level5", "level2", "level3"])
-def test_level5_round_trip_without_jax(transform, entropy, size, block):
-    """A fresh process: tests/conftest.py imports jax into this one.  The
-    Huffman levels' blocks hold enough full chunks for the device encode
-    and decode paths (their plain versions here)."""
+@pytest.mark.parametrize("transform,entropy,size,block,device_lz", [
+    ("TEXT+UTF+BWT+RANK+ZRLT", "ANS0", 40000, 1 << 16, "0"),
+    ("DNA+LZ", "HUFFMAN", 300000, 1 << 18, "0"),
+    ("TEXT+UTF+PACK+MM+LZX", "HUFFMAN", 300000, 1 << 18, "0"),
+    ("LZX", "NONE", 300000, 1 << 17, "1"),
+], ids=["level5", "level2", "level3", "level1_device_lz"])
+def test_level5_round_trip_without_jax(transform, entropy, size, block, device_lz):
+    """A fresh process, which loads no jax and no kanzi_tpu module
+    (tests/conftest.py imports jax into this one).  The Huffman levels'
+    blocks hold enough full chunks for the device encode and decode paths,
+    and level 1 runs the device LZ engine (their plain versions here)."""
+    env = dict(os.environ, KANZI_TPU_DEVICE_LZ=device_lz)
     res = subprocess.run([sys.executable, "-c", _ROUND_TRIP, transform, entropy,
                           str(size), str(block)], cwd=ROOT, capture_output=True,
-                         text=True, timeout=300)
+                         text=True, timeout=300, env=env)
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip() == "ok"
 
@@ -56,6 +60,19 @@ def test_no_jax_import_in_package():
     for path in files:
         with open(path) as fh:
             assert not pat.search(fh.read()), path
+
+
+def test_no_kanzi_tpu_import():
+    """No module of the port, and not chip_smoke.py, imports kanzi_tpu."""
+    pat = re.compile(r"^\s*(import|from)\s+kanzi_tpu(\.|\s|$)", re.M)
+    files = [os.path.join(d, f) for d, _, fs in os.walk(PKG) for f in fs
+             if f.endswith(".py")] + [os.path.join(ROOT, "chip_smoke.py")]
+    assert len(files) >= 40
+    for path in files:
+        with open(path) as fh:
+            text = fh.read()
+        assert not pat.search(text), path
+        assert "jax" not in re.findall(r"^\s*(?:import|from)\s+(\w+)", text, re.M), path
 
 
 def test_cuda_device_without_card_raises():

@@ -11,8 +11,8 @@ import numpy as np
 import pytest
 
 from kanzi_tpu.app.block_compressor import LEVELS, BlockCompressor
-from kanzi_tpu.core.bits import BitReader, BitWriter
-from kanzi_tpu.core.errors import BitStreamError
+from kanzi_tpu_torch.core.bits import BitReader, BitWriter
+from kanzi_tpu_torch.core.errors import BitStreamError
 from kanzi_tpu.io import stream as host
 from kanzi_tpu.ops import ans_block as jblock
 from kanzi_tpu.utils.corpus import mixed_corpus
