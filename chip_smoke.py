@@ -8,14 +8,23 @@ Run from the repository root on a machine with an NVIDIA H100:
 Phases, one line each; any failure raises and the exit code is not 0:
   0  the card and its power limit, torch/CUDA versions, and whether the
      port's native host library (kanzi_tpu_torch/_build, from native/) loaded
-  1  build the CUDA kernels from kanzi_tpu_torch/csrc (ans0.cu, huffman.cu,
-     lz_words.cu), one nvcc per source, in parallel
+  1  build the CUDA kernels from kanzi_tpu_torch/csrc (ans0.cu, ans1.cu,
+     huffman.cu, ksort.cu, lz_words.cu), one nvcc per source, in parallel
   2  each kernel against its plain PyTorch version on the card, bit for bit:
-     the entropy kernels on 256 chunks cut from mixed_corpus(16 MiB, seed=7)
-     plus edge rows, timed at 256 x 16 KiB; lz_words on 8 x 4 MiB rows of
-     mixed_corpus(64 MiB, seed=12) (one flat dispatch of level 1), the last
-     row's last 1 KiB repeating the KiB before it, so the tail rule shows;
-     both times by CUDA events, warm, median of 5
+     the order-0 and Huffman kernels on 256 chunks cut from
+     mixed_corpus(16 MiB, seed=7) plus edge rows, timed at 256 x 16 KiB;
+     lz_words on 8 x 4 MiB rows of mixed_corpus(64 MiB, seed=12) (one flat
+     dispatch of level 1), the last row's last 1 KiB repeating the KiB
+     before it, so the tail rule shows; the order-1 kernels on 4 x 4 MiB
+     chunks of that corpus plus two edge chunks (one repeated byte; uniform
+     random), ans1_scan at the main path's full 2^20 steps of their real
+     lanes (its plain version run and timed once, ~100 s) and at 4,096 steps
+     in the padded step-major layout, then timed for one chunk and for 32 in
+     one launch, beside the floor of its chain alone (csrc/ans1.cu
+     scan_chain_kernel, SM cycles by clock64); ksort at (8, 2^22) x 2 and
+     (512, 2^16) x 5 operands, 2 keys, the last an iota; all times by CUDA
+     events, warm, median of 5, at one main-path launch's shape (ans1_scan
+     at the six chunks of its plain run)
   3  ANS0 alone (transform NONE), 64 MiB of mixed_corpus(seed=12), 4 MiB
      blocks, jobs=8: the port's stream on the card equals its host-coder
      stream (device=None), the port decodes it on the card, the host coders
@@ -28,7 +37,14 @@ Phases, one line each; any failure raises and the exit code is not 0:
      the card and with the host coders, its first two blocks equal the
      port's CPU engine (device="cpu") on them, and it is at most 1.05 x the
      size of the host parse's stream
-The launch counts are set to 0 just before each of phases 3-7 and read just
+  8  ANS1 alone (transform NONE, entropy ANS1) on the same 64 MiB, the
+     checks of phase 3; order 1 decodes on the host (as in kanzi_tpu), so
+     the port's decode runs no kernel; one launch of each order-1 kernel per
+     4 MiB block
+  9  ksort_rows, the row sort's own entry point (no codec path calls it),
+     at the two shapes of phase 2 on fresh operands: rows sorted, operands
+     permuted alike
+The launch counts are set to 0 just before each of phases 3-9 and read just
 after it.  Then the card line, one JSON line of the kernels (each with its
 bound: the larger of its bytes over 3.35 TB/s and its integer operations
 over 67 T/s), and the result line.
@@ -57,6 +73,8 @@ BLOCK = 4 << 20
 ANS0_SRC = "kanzi_tpu_torch/csrc/ans0.cu"
 HUFFMAN_SRC = "kanzi_tpu_torch/csrc/huffman.cu"
 LZ_WORDS_SRC = "kanzi_tpu_torch/csrc/lz_words.cu"
+ANS1_SRC = "kanzi_tpu_torch/csrc/ans1.cu"
+KSORT_SRC = "kanzi_tpu_torch/csrc/ksort.cu"
 # kernel -> (source, the TPU kernel it replaces, the others it also replaces)
 REPLACES = {
     "ans0_hist_norm": (ANS0_SRC, "kanzi_tpu/ops/ans_pallas.py:342",
@@ -71,10 +89,20 @@ REPLACES = {
     "huffman_decode": (HUFFMAN_SRC, "kanzi_tpu/ops/huffman_decode_pallas.py:50",
                        ["kanzi_tpu/ops/ans_pallas.py:47"]),
     "lz_words": (LZ_WORDS_SRC, "kanzi_tpu/ops/lz_sort.py:107", []),
+    "ans1_lookup": (ANS1_SRC, "kanzi_tpu/ops/ans_pallas.py:885", []),
+    "ans1_scan": (ANS1_SRC, "kanzi_tpu/ops/ans_pallas.py:80", []),
+    "ans1_compact": (ANS1_SRC, "kanzi_tpu/ops/ans_pallas.py:480", []),
+    "ksort": (KSORT_SRC, "kanzi_tpu/ops/ksort_pallas.py:104",
+              ["kanzi_tpu/ops/ksort_pallas.py:123"]),
 }
 ANS0_KERNELS = ("ans0_hist_norm", "ans0_encode_scan", "ans0_compact", "ans0_decode")
 HUFFMAN_KERNELS = ("huffman_hist", "huffman_encode", "huffman_decode")
 LZ_KERNELS = ("lz_words",)
+ANS1_KERNELS = ("ans1_lookup", "ans1_scan", "ans1_compact")
+KSORT_SHAPES = ((8, 1 << 22, 2), (512, 1 << 16, 5))      # (B, N, operands), 2 keys
+# the shape of the phase-2 times: one main-path launch
+TIMED_AT = {"lz_words": "8 x 4 MiB", "ans1_lookup": "1 x 4 MiB", "ans1_scan": "6 x 4 MiB",
+            "ans1_compact": "1 x 4 MiB", "ksort": "(8, 2^22) x 2 operands"}
 # H100 SXM peaks (NVIDIA's data sheet, at 700 W): HBM bytes per second, and
 # the non-tensor 32-bit rate, taken for the kernels' integer operations
 PEAK_BYTES_S = 3.35e12
@@ -83,7 +111,10 @@ PEAK_OPS_S = 67e12
 # from its inner loop (bytes bound every one of them by a wide margin)
 OPS_PER_ELEMENT = {"ans0_hist_norm": 4, "ans0_encode_scan": 24, "ans0_compact": 6,
                    "ans0_decode": 24, "huffman_hist": 4, "huffman_encode": 12,
-                   "huffman_decode": 16, "lz_words": 24}
+                   "huffman_decode": 16, "lz_words": 24, "ans1_lookup": 8,
+                   "ans1_scan": 24, "ans1_compact": 6}
+# ksort's operations are counted per call: a comparison sort's least
+# compares, B * N * log2(N), each over the key operands
 
 
 def check(ok: bool, what: str) -> None:
@@ -126,24 +157,28 @@ def nbytes(*ts) -> int:
     return total
 
 
-def bound(name: str, inputs, outputs, elements: int) -> dict:
+def bound(inputs, outputs, ops: float) -> dict:
     """The least time the card could take: each input read once and each
     output written once at PEAK_BYTES_S, or the integer operations at
     PEAK_OPS_S, whichever is longer."""
     bytes_ms = nbytes(inputs, outputs) / PEAK_BYTES_S * 1e3
-    ops_ms = OPS_PER_ELEMENT[name] * elements / PEAK_OPS_S * 1e3
+    ops_ms = ops / PEAK_OPS_S * 1e3
     return {"bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
 
 
 def timed(rec: dict, name: str, kern, plain, inputs, elements: int,
-          library=None) -> None:
+          library=None, ops: float | None = None) -> dict:
     """Times of the kernel, its plain version and (where one PyTorch call
-    computes the same function) that call, and the kernel's bound."""
+    computes the same function) that call, and the kernel's bound; ``ops``
+    overrides OPS_PER_ELEMENT[name] * elements."""
     out = kern()
-    rec[name].update(ms=time_ms(kern), plain_ms=time_ms(plain),
-                     library_ms=time_ms(library) if library else None,
-                     **bound(name, inputs, out, elements))
+    if ops is None:
+        ops = OPS_PER_ELEMENT[name] * elements
+    rec.setdefault(name, {}).update(
+        ms=time_ms(kern), plain_ms=time_ms(plain),
+        library_ms=time_ms(library) if library else None, **bound(inputs, out, ops))
+    return rec[name]
 
 
 def max_abs_err(got, want) -> int:
@@ -223,8 +258,10 @@ def phase2_ans0(dev, rows) -> dict:
           xm, e)
     timed(rec, "ans0_encode_scan", lambda: A.encode_scan(xm, tm),
           lambda: A.encode_scan_ref(xm, tm), (xm, tm), e)
+    flb = flm.bool()
     timed(rec, "ans0_compact", lambda: A.compact(wm, flm), lambda: A.compact_ref(wm, flm),
-          (wm, flm), wm.numel())
+          (wm, flm), wm.numel(),
+          library=lambda: (torch.masked_select(wm, flb), flb.sum(1)))
     timed(rec, "ans0_decode", lambda: A.decode(pm, lm, sm, fm, cm),
           lambda: A.decode_ref(pm, lm, sm, fm, cm), (pm, lm, sm, fm, cm), e)
     return rec
@@ -338,11 +375,170 @@ def phase2_lz_words(dev, data: bytes) -> dict:
     return rec
 
 
+def sm_clock_mhz() -> float:
+    res = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, check=True)
+    return float(res.stdout.strip().splitlines()[0])
+
+
+def scan_chain(dev, lk, steps: int) -> dict:
+    """The floor of ans1_scan's chain: csrc/ans1.cu scan_chain_kernel runs
+    ``steps`` of the scan's steps on one thread over the 16 entries of
+    ``lk`` (no load or store in its loop) and counts the SM cycles.  Its
+    final state must equal ans1_scan's on those entries repeated.  Not a
+    codec kernel: no launch count."""
+    import torch
+
+    from kanzi_tpu_torch.ops import ans1_cuda as A1
+    from kanzi_tpu_torch.utils import cuda_build
+
+    ent = lk.reshape(-1)[:16].contiguous()
+    out = torch.zeros(4, dtype=torch.int32, device=dev)
+    cyc = torch.zeros(2, dtype=torch.int64, device=dev)
+    err = cuda_build.load().kz_ans1_scan_chain(
+        ent.data_ptr(), out.data_ptr(), cyc.data_ptr(), steps, A1.LOG_RANGE1,
+        torch.cuda.current_stream(dev).cuda_stream)
+    check(err == 0, f"scan_chain: kernel launch failed, cudaError {err}")
+    _, st = A1.scan(ent.repeat(steps // 16).view(steps, 1))
+    check(int(out[0]) == int(st[0]), "scan_chain's state differs from ans1_scan's")
+    return {"chain_cycles_per_step": int(cyc[0]) / steps}
+
+
+def phase2_ans1(dev, data: bytes) -> dict:
+    """lookup1, scan and compact against their plain versions on 4 x 4 MiB
+    chunks of the corpus and two edge chunks (one repeated byte: every
+    context holds one symbol, freq 2048 capped to 2047; uniform random).
+    The scan is held to its plain version at full length, the main path's
+    2^20 steps of the 24 real lanes; the plain version takes ~8 tensor ops
+    a step, ~100 s for those steps on the card, so it runs, and is timed,
+    once.  The padded step-major layout (the lanes padded to 128 with inert
+    (1, 0) entries, as on the TPU) is held to it at 4,096 steps of the same
+    lanes.  Then the chain's floor, from scan_chain."""
+    import numpy as np
+    import torch
+
+    from kanzi_tpu_torch.ops import ans1_cuda as A1
+    from kanzi_tpu_torch.ops.ans_block import order1_tables
+
+    rng = np.random.default_rng(8)
+    chunks = np.concatenate([np.frombuffer(data[:4 * BLOCK], np.uint8).reshape(4, BLOCK),
+                             np.full((1, BLOCK), 200, np.uint8),
+                             rng.integers(0, 256, (1, BLOCK), dtype=np.uint8)])
+    freq, cum = order1_tables(chunks)
+    x = torch.from_numpy(chunks).to(dev)
+    packed = A1.pack_tables(torch.from_numpy(freq).to(dev), torch.from_numpy(cum).to(dev))
+    n, q, s = x.shape[0], BLOCK // 4, 4096
+    rec = {}
+
+    lk = A1.lookup1(x, packed)
+    lk_r = A1.lookup1_ref(x, packed)
+    check(torch.equal(lk, lk_r), "ans1_lookup differs from its plain version")
+    check(bool((lk[4] & 2047 == 2047).all()), "ans1_lookup: the repeated byte's 2048 is not capped")
+    rec["ans1_lookup"] = {"max_abs_err": max_abs_err([lk], [lk_r])}
+
+    sc = A1.scan_chunks(lk)
+    torch.cuda.synchronize()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    sc_r = A1.scan_chunks_ref(lk)
+    b.record()
+    b.synchronize()
+    check(all(torch.equal(u, v) for u, v in zip(sc, sc_r)),
+          "ans1_scan (the main path's layout) differs from its plain version")
+    cut = lk.view(n, 4, q)[:, :, q - s:]
+    padded = torch.ones((s, 128), dtype=torch.int32, device=dev)
+    padded[:, :4 * n] = cut.flip(2).permute(2, 0, 1).reshape(s, 4 * n)
+    padded = padded.view(s, 1, 128)
+    sp = A1.scan(padded)
+    sp_r = A1.scan_ref(padded)
+    check(all(torch.equal(u, v) for u, v in zip(sp, sp_r)),
+          "ans1_scan (the padded layout) differs from its plain version")
+    rec["ans1_scan"] = {"max_abs_err": max_abs_err([*sc, *sp], [*sc_r, *sp_r]),
+                        "plain_ms": a.elapsed_time(b)}
+    del sc_r, sp, sp_r
+
+    e = sc[0].view(n * (BLOCK // CHUNK), 128, 128)
+    cp = A1.compact(e)
+    cp_r = A1.compact_ref(e)
+    check(all(torch.equal(u, v) for u, v in zip(cp, cp_r)),
+          "ans1_compact differs from its plain version")
+    rec["ans1_compact"] = {"max_abs_err": max_abs_err(cp, cp_r)}
+
+    # times at one main-path launch, one 4 MiB chunk, but the scan's at the
+    # six chunks of its one plain run (a launch of one chunk takes as long)
+    x1, p1, lk1 = x[:1], packed[:1], lk[:1].contiguous()
+    e1 = e[:BLOCK // CHUNK]
+    pos = torch.arange(BLOCK, device=dev)
+    sym = x1.long()
+    idx = torch.where(pos % q == 0, 0, torch.roll(sym, 1, dims=1)) * 256 + sym
+    timed(rec, "ans1_lookup", lambda: A1.lookup1(x1, p1), lambda: A1.lookup1_ref(x1, p1),
+          (x1, p1), BLOCK, library=lambda: p1.gather(1, idx))
+    r = rec["ans1_scan"]
+    r.update(ms=time_ms(lambda: A1.scan_chunks(lk)), library_ms=None,
+             **bound(lk, sc, OPS_PER_ELEMENT["ans1_scan"] * lk.numel()))
+    lk32 = lk1.expand(32, BLOCK).contiguous()
+    clock = sm_clock_mhz()
+    r.update(steps=q, ms_1_chunk=time_ms(lambda: A1.scan_chunks(lk1)),
+             ms_32_chunks=time_ms(lambda: A1.scan_chunks(lk32)), sm_clock_max_mhz=clock,
+             cycles_per_step=r["ms"] * 1e-3 * clock * 1e6 / q, **scan_chain(dev, lk1, q))
+    r["floor_ms"] = q * r["chain_cycles_per_step"] / (clock * 1e3)
+    timed(rec, "ans1_compact", lambda: A1.compact(e1), lambda: A1.compact_ref(e1),
+          e1, e1.numel(), library=lambda: (torch.masked_select(e1 & 0xFFFF, e1 >= 1 << 16),
+                                           (e1 >> 16).sum(2)))
+    return rec
+
+
+def ksort_operands(dev, b: int, n: int, nops: int, seed: int) -> list:
+    """A key with many ties (2^21 values), the position iota that makes the
+    order total, and nops - 2 payload operands, made on the card."""
+    import torch
+    g = torch.Generator(device=dev).manual_seed(seed)
+    rand = lambda lo, hi: torch.randint(lo, hi, (b, n), generator=g, device=dev,  # noqa: E731
+                                        dtype=torch.int32)
+    iota = torch.arange(n, dtype=torch.int32, device=dev).expand(b, n).contiguous()
+    return [rand(-(1 << 20), 1 << 20), iota] + [rand(-(1 << 31), (1 << 31) - 1)
+                                               for _ in range(nops - 2)]
+
+
+def ksort_library(ops: list):
+    """One PyTorch sort of a packed int64 key (the key's sign kept in the
+    high word, the iota below it), then a gather of every operand."""
+    import torch
+    _, order = torch.sort((ops[0].long() << 32) | ops[1].long(), dim=1)
+    return [a.gather(1, order) for a in ops]
+
+
+def phase2_ksort(dev) -> dict:
+    import math
+
+    from kanzi_tpu_torch.ops import ksort as K
+
+    rec = {"ksort": {"max_abs_err": 0, "at": {}}}
+    for i, (b, n, nops) in enumerate(KSORT_SHAPES):
+        ops = ksort_operands(dev, b, n, nops, seed=20 + i)
+        got = K.ksort_rows(ops, 2)
+        want = K.ksort_rows_ref(ops, 2)
+        check(all(g.equal(w) for g, w in zip(got, want)),
+              f"ksort differs from its plain version at ({b}, {n}) x {nops}")
+        check(all(g.equal(w) for g, w in zip(got, ksort_library(ops))),
+              "ksort differs from the packed-key library sort")
+        rec["ksort"]["max_abs_err"] = max(rec["ksort"]["max_abs_err"], max_abs_err(got, want))
+        at = {}
+        timed({"ksort": at}, "ksort", lambda: K.ksort_rows(ops, 2),
+              lambda: K.ksort_rows_ref(ops, 2), ops, b * n,
+              library=lambda: ksort_library(ops), ops=2 * b * n * math.log2(n))
+        rec["ksort"]["at"][f"({b}, {n}) x {nops}"] = at
+        if i == 0:
+            rec["ksort"].update(at)
+    return rec
+
+
 def phase2_kernels(dev, data: bytes) -> dict:
     from kanzi_tpu_torch.utils.corpus import mixed_corpus
     rows = mixed_corpus(16 << 20, seed=7).reshape(-1, CHUNK)[::4]      # 256
     return {**phase2_ans0(dev, rows), **phase2_huffman(dev, rows),
-            **phase2_lz_words(dev, data)}
+            **phase2_lz_words(dev, data), **phase2_ans1(dev, data), **phase2_ksort(dev)}
 
 
 def _compress(cls, data: bytes, ctx: dict, **kw) -> bytes:
@@ -358,13 +554,14 @@ def _decompress(cls, blob: bytes, jobs: int, **kw) -> bytes:
 
 
 def stream_phase(label: str, data: bytes, transform: str, entropy: str, dev,
-                 kern: dict, names: tuple) -> dict:
+                 kern: dict, names: tuple, dec: str | None) -> dict:
     """One cell: the port and the host each compress and decompress ``data``.
     The launch counts are set to 0 just before the port's run and read just
-    after it; every kernel of ``names`` must have run.  ``device_share`` is
-    an estimate, launches x the phase-2 kernel time at 256 chunks per launch
-    over the port's wall time, an upper bound where blocks hold fewer
-    chunks."""
+    after it; every kernel of ``names`` must have run.  ``dec`` is the
+    family's decode kernel (None: the port decodes on the host).
+    ``device_share`` is an estimate, launches x the phase-2 kernel time at
+    one main-path launch's shape over the port's wall time, an upper bound
+    where blocks hold fewer chunks."""
     import torch
 
     from kanzi_tpu_torch.io import stream as port
@@ -392,15 +589,42 @@ def stream_phase(label: str, data: bytes, transform: str, entropy: str, dev,
     host_d = time.perf_counter() - t
     check(out == data, f"{label}: the host's decode of the port's stream differs")
     check(all(v > 0 for v in launches.values()), f"{label}: a kernel never ran: {launches}")
-    dec = names[-1]                         # each family's decode kernel is last
     enc_ms = sum(launches[k] * kern[k]["ms"] for k in names if k != dec)
-    dec_ms = launches[dec] * kern[dec]["ms"]
+    dec_ms = launches[dec] * kern[dec]["ms"] if dec else 0.0
     return {"bytes_in": len(data), "bytes_out": len(blob),
             "device_share": {"compress": enc_ms / 1e3 / port_c,
                              "decompress": dec_ms / 1e3 / port_d},
             "compress_mb_s": {"port": mb / port_c, "host": mb / host_c},
             "decompress_mb_s": {"port": mb / port_d, "host": mb / host_d},
             "launches": launches}
+
+
+def phase9_ksort(dev) -> dict:
+    """ksort_rows through its own entry point at the two shapes of phase 2,
+    on fresh operands; the launch count is set to 0 just before and read
+    just after.  Each row must come out ordered by (key, iota), and every
+    operand permuted as the iota was."""
+    import torch
+
+    from kanzi_tpu_torch.ops import ksort as K
+    from kanzi_tpu_torch.ops import launch
+
+    inputs = [ksort_operands(dev, b, n, nops, seed=30 + i)
+              for i, (b, n, nops) in enumerate(KSORT_SHAPES)]
+    launch.reset_launches()
+    t = time.perf_counter()
+    outs = [K.ksort_rows(ops, 2) for ops in inputs]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launches = {"ksort": launch.launches["ksort"]}
+    for ops, out in zip(inputs, outs):
+        key, perm = out[0], out[1]
+        dk = key[:, 1:].long() - key[:, :-1].long()
+        check(bool(((dk > 0) | ((dk == 0) & (perm[:, 1:] > perm[:, :-1]))).all()),
+              "ksort_rows: rows are not in (key, iota) order")
+        check(all(o.equal(a.gather(1, perm.long())) for o, a in zip(out, ops)),
+              "ksort_rows: the operands were not permuted alike")
+    return {"wall_ms": wall * 1e3, "launches": launches}
 
 
 def first_frames(blob: bytes, k: int) -> list:
@@ -580,21 +804,33 @@ def main() -> int:
     kern = phase2_kernels(dev, data)
     for name, r in kern.items():
         lib = "" if r["library_ms"] is None else f", library call {r['library_ms']:.4f} ms"
+        once = " (one run)" if name == "ans1_scan" else ""
         print(f"phase 2: {name}: bit-equal to its plain version; kernel {r['ms']:.4f} ms, "
-              f"plain {r['plain_ms']:.4f} ms{lib}, bound {r['bound_ms']:.4f} ms "
-              f"({r['bound_by']}) at {'8 x 4 MiB' if name in LZ_KERNELS else '256 x 16 KiB'}")
+              f"plain {r['plain_ms']:.4f} ms{once}{lib}, bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']}) at {TIMED_AT.get(name, '256 x 16 KiB')}")
+    r = kern["ans1_scan"]
+    print(f"phase 2: ans1_scan: one chunk {r['ms_1_chunk']:.4f} ms, 32 chunks in one launch "
+          f"{r['ms_32_chunks']:.4f} ms; measured {r['cycles_per_step']:.1f} cycles a step at "
+          f"the {r['sm_clock_max_mhz']:.0f} MHz maximum SM clock; the chain alone "
+          f"(scan_chain, clock64) {r['chain_cycles_per_step']:.1f} cycles a step, a floor of "
+          f"{r['steps']} x {r['chain_cycles_per_step']:.1f} cycles = {r['floor_ms']:.4f} ms")
+    for shape, a in kern["ksort"]["at"].items():
+        print(f"phase 2: ksort at {shape}: kernel {a['ms']:.4f} ms, plain {a['plain_ms']:.4f} "
+              f"ms, library call {a['library_ms']:.4f} ms, bound {a['bound_ms']:.4f} ms "
+              f"({a['bound_by']})")
     print(f"phase 2: done in {time.perf_counter() - t:.1f} s")
     if args.quick:
         return 0
 
     launches = dict.fromkeys(REPLACES, 0)
-    for label, transform, entropy, names in (
-            ("phase 3: ANS0 alone", "NONE", "ANS0", ANS0_KERNELS),
-            ("phase 4: level 5", "TEXT+UTF+BWT+RANK+ZRLT", "ANS0", ANS0_KERNELS),
-            ("phase 5: Huffman alone", "NONE", "HUFFMAN", HUFFMAN_KERNELS),
-            ("phase 6: level 3", "TEXT+UTF+PACK+MM+LZX", "HUFFMAN", HUFFMAN_KERNELS)):
+    for label, transform, entropy, names, dec in (
+            ("phase 3: ANS0 alone", "NONE", "ANS0", ANS0_KERNELS, "ans0_decode"),
+            ("phase 4: level 5", "TEXT+UTF+BWT+RANK+ZRLT", "ANS0", ANS0_KERNELS, "ans0_decode"),
+            ("phase 5: Huffman alone", "NONE", "HUFFMAN", HUFFMAN_KERNELS, "huffman_decode"),
+            ("phase 6: level 3", "TEXT+UTF+PACK+MM+LZX", "HUFFMAN", HUFFMAN_KERNELS,
+             "huffman_decode")):
         t = time.perf_counter()
-        r = stream_phase(label, data, transform, entropy, dev, kern, names)
+        r = stream_phase(label, data, transform, entropy, dev, kern, names, dec)
         for k, v in r["launches"].items():
             launches[k] += v
         print(f"{label}: {r['bytes_in']} B -> {r['bytes_out']} B, identical to the host "
@@ -616,6 +852,25 @@ def main() -> int:
           f"{r['decompress_mb_s']['host']:.2f}; lz_words share of the port's compress "
           f"(estimate) {r['device_share']['compress']:.4f}; launches {r['launches']}; "
           f"{time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    r = stream_phase("phase 8: ANS1 alone", data, "NONE", "ANS1", dev, kern, ANS1_KERNELS, None)
+    launches.update(r["launches"])
+    blocks = -(-len(data) // BLOCK)
+    check(all(v == blocks for v in r["launches"].values()),
+          f"phase 8: not one launch of each order-1 kernel per block: {r['launches']}")
+    print(f"phase 8: ANS1 alone: {r['bytes_in']} B -> {r['bytes_out']} B, identical to the host "
+          f"stream, decoded by the port (on the host, as in the reference) and the host "
+          f"coders; compress MB/s port {r['compress_mb_s']['port']:.2f} host "
+          f"{r['compress_mb_s']['host']:.2f}; decompress MB/s port "
+          f"{r['decompress_mb_s']['port']:.2f} host {r['decompress_mb_s']['host']:.2f}; "
+          f"kernel share of the port's compress (estimate) "
+          f"{r['device_share']['compress']:.4f}; launches {r['launches']}; "
+          f"{time.perf_counter() - t:.1f} s")
+    r = phase9_ksort(dev)
+    launches.update(r["launches"])
+    print(f"phase 9: ksort_rows at {', '.join(f'({b}, {n}) x {k}' for b, n, k in KSORT_SHAPES)}: "
+          f"rows ordered, operands permuted alike; {r['wall_ms']:.2f} ms; launches "
+          f"{r['launches']}")
     check(all(v > 0 for v in launches.values()), f"launches {launches}")
 
     kernels = []
@@ -623,7 +878,12 @@ def main() -> int:
         k = {"name": name, "route": "cuda", "source": src, "replaces": rep,
              "launches": launches[name],
              **{key: kern[name][key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms",
-                                                  "bound_by", "library_ms")}}
+                                                  "bound_by", "library_ms")},
+             "timed_at": TIMED_AT.get(name, "256 x 16 KiB")}
+        for key in ("ms_1_chunk", "ms_32_chunks", "cycles_per_step", "chain_cycles_per_step",
+                    "floor_ms", "at"):
+            if key in kern[name]:
+                k[key] = kern[name][key]
         if also:
             k["also_replaces"] = also
         kernels.append(k)

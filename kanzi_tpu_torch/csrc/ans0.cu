@@ -12,6 +12,7 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "compact.cuh"
 #include "hist.cuh"
 
 namespace {
@@ -20,44 +21,11 @@ constexpr int kChunk = kHistChunk;
 constexpr int kLogRange = 12;
 constexpr uint32_t kScale = 1u << kLogRange;
 constexpr uint32_t kAnsTop = 1u << 15;
-constexpr unsigned kFull = 0xffffffffu;
 
 // ---------------------------------------------------------------------------
-// block-wide helpers (blockDim.x == NT, a multiple of 32)
+// block-wide helpers (blockDim.x == NT, a multiple of 32); the prefix sum,
+// block_excl_scan, is in compact.cuh
 // ---------------------------------------------------------------------------
-
-__device__ __forceinline__ int warp_incl_scan(int v) {
-  const int lane = threadIdx.x & 31;
-#pragma unroll
-  for (int o = 1; o < 32; o <<= 1) {
-    const int y = __shfl_up_sync(kFull, v, o);
-    if (lane >= o) v += y;
-  }
-  return v;
-}
-
-// Exclusive prefix sum over the block in thread order; *total gets the sum.
-// smem holds NT / 32 + 1 ints.
-template <int NT>
-__device__ int block_excl_scan(int v, int* smem, int* total) {
-  constexpr int kWarps = NT / 32;
-  const int lane = threadIdx.x & 31;
-  const int w = threadIdx.x >> 5;
-  const int x = warp_incl_scan(v);
-  if (lane == 31) smem[w] = x;
-  __syncthreads();
-  if (w == 0) {
-    const int t = lane < kWarps ? smem[lane] : 0;
-    const int s = warp_incl_scan(t);
-    if (lane < kWarps) smem[lane] = s - t;
-    if (lane == kWarps - 1) smem[kWarps] = s;
-  }
-  __syncthreads();
-  const int res = x - v + smem[w];
-  *total = smem[kWarps];
-  __syncthreads();  // smem may be reused by the next call
-  return res;
-}
 
 template <int NT>
 __device__ int block_max(int v, int* smem) {
@@ -200,14 +168,11 @@ encode_scan_kernel(const uint8_t* __restrict__ chunks, const int32_t* __restrict
 // kernel 3: payload compaction (stable partition of the flagged words)
 // ---------------------------------------------------------------------------
 //
-// Replaces kanzi_tpu/ops/ans_pallas.py _compact2_kernel (:487, body
-// _compact_body :494: MXU prefix sums, binary-search gathers and 0/1
-// placement matmuls).  One CTA of 1024 threads per chunk; each thread takes
-// a run of c / 1024 consecutive positions (16 for a 16 KiB chunk), counts
-// its flags, a block-wide exclusive prefix sum gives its output offset, and
-// it scatters its flagged words in order.  Positions from n_emit on are
-// zeroed, as on the TPU.  Bound on this card: DRAM bytes (3 bytes read and
-// 2 written per position); one pass, no intermediate array.
+// Replaces kanzi_tpu/ops/ans_pallas.py _compact2_kernel (:487).  One CTA of
+// 1024 threads per chunk runs compact_tile (compact.cuh, shared with
+// ans1_compact) over the chunk's words and flags: 16 consecutive positions a
+// thread for a 16 KiB chunk.  Bound on this card: DRAM bytes (3 bytes read
+// and 2 written per position).
 
 constexpr int kCompactThreads = 1024;
 
@@ -218,18 +183,10 @@ compact_kernel(const int16_t* __restrict__ words, const uint8_t* __restrict__ fl
   const size_t row = blockIdx.x;
   const int16_t* wv = words + row * c;
   const uint8_t* wf = flags + row * c;
-  int16_t* out = payload + row * c;
-  const int per = (c + kCompactThreads - 1) / kCompactThreads;
-  const int lo = min(static_cast<int>(threadIdx.x) * per, c);
-  const int hi = min(lo + per, c);
-  int cnt = 0;
-  for (int i = lo; i < hi; ++i) cnt += wf[i] != 0;
-  int total;
-  int off = block_excl_scan<kCompactThreads>(cnt, red, &total);
-  for (int i = lo; i < hi; ++i) {
-    if (wf[i] != 0) out[off++] = wv[i];
-  }
-  for (int i = total + threadIdx.x; i < c; i += kCompactThreads) out[i] = 0;
+  int mine;
+  const int total = compact_tile<kCompactThreads>(
+      [&](int i) { return wf[i] != 0 ? static_cast<int>(static_cast<uint16_t>(wv[i])) : -1; },
+      c, payload + row * c, red, &mine);
   if (threadIdx.x == 0) n_emit[row] = total;
 }
 

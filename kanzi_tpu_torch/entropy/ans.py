@@ -30,9 +30,12 @@ all chunks at once computes states and emission flags, then prefix sums place
 the emitted byte pairs.
 
 ``device``: None is the host path (native C++, else numpy); a torch device
-runs order 0 at the default chunk size and log range through
-ops/ans_block.py, on the CUDA kernels (``cuda``) or their plain PyTorch
-versions (``cpu``).  Every other case is the host path whatever the device.
+runs, through ops/ans_block.py, the order-0 encode (default chunk size and
+log range) and decode (default chunk size), and the order-1 encode of a
+block of at least one full 4 MiB chunk (default chunk size and log range),
+on the CUDA kernels (``cuda``) or their plain PyTorch versions (``cpu``).
+Every other case is the host path whatever the device; order 1 decodes on
+the host, as in the reference, which has no device decoder for it.
 """
 
 from __future__ import annotations
@@ -169,11 +172,14 @@ class ANSRangeEncoder:
         bw = bw or self.bw
         block = np.asarray(block, dtype=np.uint8)
         count = block.size
-        if (self.device is not None and self.order == 0
+        if (self.device is not None
                 and self._chunk_size0 == DEFAULT_ANS0_CHUNK_SIZE
                 and self._log_range0 == DEFAULT_LOG_RANGE):
             from ..ops import ans_block
-            return ans_block.ans0_encode(block, bw, self.device)
+            if self.order == 0:
+                return ans_block.ans0_encode(block, bw, self.device)
+            if count >= self.chunk_size:
+                return ans_block.ans1_encode(block, bw, self.device)
         from ..utils.native_coders import ans_encode_native
         if ans_encode_native(block, bw, self.order, self._chunk_size0,
                              self._log_range0):

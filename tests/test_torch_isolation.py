@@ -52,11 +52,43 @@ def test_level5_round_trip_without_jax(transform, entropy, size, block, device_l
     assert res.stdout.strip() == "ok"
 
 
+_ORDER1_OPS = """
+import sys
+import numpy as np
+import torch
+from kanzi_tpu_torch.ops import ans1_cuda, ksort
+rng = np.random.default_rng(1)
+chunks = rng.integers(0, 7, (2, 16384)).astype(np.uint8)
+freq = np.zeros((2, 256, 256), np.int64)
+freq[:, :, :7] = [292, 292, 292, 293, 293, 293, 293]
+pay, n_emit, st = ans1_cuda.ans1_encode_chunks(chunks, freq, np.cumsum(freq, 2) - freq, "cpu")
+assert pay.shape == (2, 16384) and st.shape == (2, 4) and (n_emit > 0).all()
+keys = [torch.from_numpy(rng.integers(-9, 9, (2, 1024)).astype(np.int32)),
+        torch.arange(1024, dtype=torch.int32).expand(2, 1024)]
+out = ksort.ksort_rows(keys, 2)
+assert (out[0][:, 1:] >= out[0][:, :-1]).all()
+loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "kanzi_tpu"))
+assert not loaded, loaded
+print("ok")
+"""
+
+
+def test_order1_and_ksort_ops_without_jax():
+    """A fresh process runs the CPU ops of ops/ans1_cuda.py and ops/ksort.py
+    at a small shape and loads no jax and no kanzi_tpu module."""
+    res = subprocess.run([sys.executable, "-c", _ORDER1_OPS], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "ok"
+
+
 def test_no_jax_import_in_package():
     pat = re.compile(r"^\s*(import|from)\s+jax\b", re.M)
     files = [os.path.join(d, f) for d, _, fs in os.walk(PKG) for f in fs
              if f.endswith(".py")]
     assert len(files) >= 8
+    for new in ("ans1_cuda.py", "ksort.py"):
+        assert os.path.join(PKG, "ops", new) in files
     for path in files:
         with open(path) as fh:
             assert not pat.search(fh.read()), path
