@@ -17,11 +17,13 @@ Phases, one line each; any failure raises and the exit code is not 0:
      dispatch of level 1), the last row's last 1 KiB repeating the KiB
      before it, so the tail rule shows; the order-1 kernels on 4 x 4 MiB
      chunks of that corpus plus two edge chunks (one repeated byte; uniform
-     random), ans1_scan at the main path's full 2^20 steps of their real
-     lanes (its plain version run and timed once, ~100 s) and at 4,096 steps
-     in the padded step-major layout, then timed for one chunk and for 32 in
-     one launch, beside the floor of its chain alone (csrc/ans1.cu
-     scan_chain_kernel, SM cycles by clock64); ksort at (8, 2^22) x 2 and
+     random), ans1_scan (the order-1 lookup and the scan, fused) at the main
+     path's full 2^20 steps of their real lanes (its plain version run and
+     timed once, ~100 s), then timed for one chunk and for 32 in one launch,
+     beside the floor of its chain alone (csrc/ans1.cu scan_chain_kernel, SM
+     cycles by clock64); the scan's reciprocal against exact division for
+     every f < 2048 and every state x < 2^31 (csrc/ans1.cu
+     recip_check_kernel, 0 mismatches or the run fails); ksort at (8, 2^22) x 2 and
      (512, 2^16) x 5 operands, 2 keys, the last an iota; all times by CUDA
      events, warm, median of 5, at one main-path launch's shape (ans1_scan
      at the six chunks of its plain run)
@@ -39,8 +41,8 @@ Phases, one line each; any failure raises and the exit code is not 0:
      size of the host parse's stream
   8  ANS1 alone (transform NONE, entropy ANS1) on the same 64 MiB, the
      checks of phase 3; order 1 decodes on the host (as in kanzi_tpu), so
-     the port's decode runs no kernel; one launch of each order-1 kernel per
-     4 MiB block
+     the port's decode runs no kernel; one launch of each order-1 kernel
+     (ans1_scan, ans1_compact) per 4 MiB block
   9  ksort_rows, the row sort's own entry point (no codec path calls it),
      at the two shapes of phase 2 on fresh operands: rows sorted, operands
      permuted alike
@@ -89,8 +91,8 @@ REPLACES = {
     "huffman_decode": (HUFFMAN_SRC, "kanzi_tpu/ops/huffman_decode_pallas.py:50",
                        ["kanzi_tpu/ops/ans_pallas.py:47"]),
     "lz_words": (LZ_WORDS_SRC, "kanzi_tpu/ops/lz_sort.py:107", []),
-    "ans1_lookup": (ANS1_SRC, "kanzi_tpu/ops/ans_pallas.py:885", []),
-    "ans1_scan": (ANS1_SRC, "kanzi_tpu/ops/ans_pallas.py:80", []),
+    "ans1_scan": (ANS1_SRC, "kanzi_tpu/ops/ans_pallas.py:80",
+                  ["kanzi_tpu/ops/ans_pallas.py:885"]),
     "ans1_compact": (ANS1_SRC, "kanzi_tpu/ops/ans_pallas.py:480", []),
     "ksort": (KSORT_SRC, "kanzi_tpu/ops/ksort_pallas.py:104",
               ["kanzi_tpu/ops/ksort_pallas.py:123"]),
@@ -98,11 +100,11 @@ REPLACES = {
 ANS0_KERNELS = ("ans0_hist_norm", "ans0_encode_scan", "ans0_compact", "ans0_decode")
 HUFFMAN_KERNELS = ("huffman_hist", "huffman_encode", "huffman_decode")
 LZ_KERNELS = ("lz_words",)
-ANS1_KERNELS = ("ans1_lookup", "ans1_scan", "ans1_compact")
+ANS1_KERNELS = ("ans1_scan", "ans1_compact")
 KSORT_SHAPES = ((8, 1 << 22, 2), (512, 1 << 16, 5))      # (B, N, operands), 2 keys
 # the shape of the phase-2 times: one main-path launch
-TIMED_AT = {"lz_words": "8 x 4 MiB", "ans1_lookup": "1 x 4 MiB", "ans1_scan": "6 x 4 MiB",
-            "ans1_compact": "1 x 4 MiB", "ksort": "(8, 2^22) x 2 operands"}
+TIMED_AT = {"lz_words": "8 x 4 MiB", "ans1_scan": "6 x 4 MiB", "ans1_compact": "1 x 4 MiB",
+            "ksort": "(8, 2^22) x 2 operands"}
 # H100 SXM peaks (NVIDIA's data sheet, at 700 W): HBM bytes per second, and
 # the non-tensor 32-bit rate, taken for the kernels' integer operations
 PEAK_BYTES_S = 3.35e12
@@ -111,8 +113,8 @@ PEAK_OPS_S = 67e12
 # from its inner loop (bytes bound every one of them by a wide margin)
 OPS_PER_ELEMENT = {"ans0_hist_norm": 4, "ans0_encode_scan": 24, "ans0_compact": 6,
                    "ans0_decode": 24, "huffman_hist": 4, "huffman_encode": 12,
-                   "huffman_decode": 16, "lz_words": 24, "ans1_lookup": 8,
-                   "ans1_scan": 24, "ans1_compact": 6}
+                   "huffman_decode": 16, "lz_words": 24, "ans1_scan": 16,
+                   "ans1_compact": 6}
 # ksort's operations are counted per call: a comparison sort's least
 # compares, B * N * log2(N), each over the key operands
 
@@ -382,39 +384,72 @@ def sm_clock_mhz() -> float:
     return float(res.stdout.strip().splitlines()[0])
 
 
-def scan_chain(dev, lk, steps: int) -> dict:
+def scan_chain(dev, ent, steps: int) -> dict:
     """The floor of ans1_scan's chain: csrc/ans1.cu scan_chain_kernel runs
-    ``steps`` of the scan's steps on one thread over the 16 entries of
-    ``lk`` (no load or store in its loop) and counts the SM cycles.  Its
-    final state must equal ans1_scan's on those entries repeated.  Not a
-    codec kernel: no launch count."""
+    ``steps`` of the scan's steps on one thread over the 16 entries ``ent``
+    (their step operands in registers, no load or store in its loop) and
+    counts the SM cycles.  Its final state must equal ans1_scan's on a chunk
+    whose four quarters show it those entries repeated: byte p % 16 + 1 at
+    quarter position p, and a table holding ent[15 - j] at each of the
+    byte pairs (context, symbol) of p % 16 == j.  Not a codec kernel: no
+    launch count."""
     import torch
 
     from kanzi_tpu_torch.ops import ans1_cuda as A1
     from kanzi_tpu_torch.utils import cuda_build
 
-    ent = lk.reshape(-1)[:16].contiguous()
     out = torch.zeros(4, dtype=torch.int32, device=dev)
     cyc = torch.zeros(2, dtype=torch.int64, device=dev)
     err = cuda_build.load().kz_ans1_scan_chain(
         ent.data_ptr(), out.data_ptr(), cyc.data_ptr(), steps, A1.LOG_RANGE1,
         torch.cuda.current_stream(dev).cuda_stream)
     check(err == 0, f"scan_chain: kernel launch failed, cudaError {err}")
-    _, st = A1.scan(ent.repeat(steps // 16).view(steps, 1))
-    check(int(out[0]) == int(st[0]), "scan_chain's state differs from ans1_scan's")
+    sym = torch.arange(steps, device=dev) % 16 + 1
+    chunk = sym.repeat(4).to(torch.uint8).view(1, 4 * steps)
+    packed = torch.zeros((1, 65536), dtype=torch.int32, device=dev)
+    j = torch.arange(16, device=dev)
+    packed[0, ((j - 1) % 16 + 1) * 256 + j + 1] = ent.flip(0)
+    packed[0, 1] = ent[15]                    # quarter start: context 0
+    _, st = A1.scan_chunks(chunk, packed)
+    check(bool((st == out[0]).all()), "scan_chain's state differs from ans1_scan's")
     return {"chain_cycles_per_step": int(cyc[0]) / steps}
 
 
+def recip_check(dev) -> dict:
+    """csrc/ans1.cu recip_check_kernel: the reciprocal against exact division
+    for every f in [1, 2047] and every state x < 2^31 (a superset of the
+    renormalised states x < f << 20 that the divide of the TPU's scan saw).
+    Fails unless it counts 0 mismatches over all the pairs.  Not a codec
+    kernel: no launch count."""
+    import torch
+
+    from kanzi_tpu_torch.ops import ans1_cuda as A1
+    from kanzi_tpu_torch.utils import cuda_build
+
+    lr = A1.LOG_RANGE1
+    counts = torch.zeros(2, dtype=torch.int64, device=dev)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    err = cuda_build.load().kz_ans1_recip_check(counts.data_ptr(), lr,
+                                                torch.cuda.current_stream(dev).cuda_stream)
+    check(err == 0, f"recip_check: kernel launch failed, cudaError {err}")
+    bad, pairs = (int(v) for v in counts.cpu())
+    seconds = time.perf_counter() - t
+    want = ((1 << lr) - 1) << 31
+    check(pairs == want, f"recip_check compared {pairs} pairs, not {want}")
+    check(bad == 0, f"recip_check: {bad} mismatches of the reciprocal against x / f")
+    return {"recip_pairs": pairs, "recip_mismatches": bad, "recip_check_s": seconds}
+
+
 def phase2_ans1(dev, data: bytes) -> dict:
-    """lookup1, scan and compact against their plain versions on 4 x 4 MiB
-    chunks of the corpus and two edge chunks (one repeated byte: every
-    context holds one symbol, freq 2048 capped to 2047; uniform random).
-    The scan is held to its plain version at full length, the main path's
-    2^20 steps of the 24 real lanes; the plain version takes ~8 tensor ops
-    a step, ~100 s for those steps on the card, so it runs, and is timed,
-    once.  The padded step-major layout (the lanes padded to 128 with inert
-    (1, 0) entries, as on the TPU) is held to it at 4,096 steps of the same
-    lanes.  Then the chain's floor, from scan_chain."""
+    """The fused ans1_scan (lookup and scan) and compact against their plain
+    versions on 4 x 4 MiB chunks of the corpus and two edge chunks (one
+    repeated byte: every context holds one symbol, freq 2048 capped to 2047;
+    uniform random).  The scan is held to scan_chunks_ref(lookup1_ref(...))
+    at full length, the main path's 2^20 steps of the 24 real lanes; the
+    plain version takes ~8 tensor ops a step, ~100 s for those steps on the
+    card, so it runs, and is timed, once.  Then the reciprocal's exhaustive
+    check and the chain's floor, from scan_chain."""
     import numpy as np
     import torch
 
@@ -428,35 +463,23 @@ def phase2_ans1(dev, data: bytes) -> dict:
     freq, cum = order1_tables(chunks)
     x = torch.from_numpy(chunks).to(dev)
     packed = A1.pack_tables(torch.from_numpy(freq).to(dev), torch.from_numpy(cum).to(dev))
-    n, q, s = x.shape[0], BLOCK // 4, 4096
+    n, q = x.shape[0], BLOCK // 4
     rec = {}
 
-    lk = A1.lookup1(x, packed)
     lk_r = A1.lookup1_ref(x, packed)
-    check(torch.equal(lk, lk_r), "ans1_lookup differs from its plain version")
-    check(bool((lk[4] & 2047 == 2047).all()), "ans1_lookup: the repeated byte's 2048 is not capped")
-    rec["ans1_lookup"] = {"max_abs_err": max_abs_err([lk], [lk_r])}
-
-    sc = A1.scan_chunks(lk)
+    check(bool((lk_r[4] & 2047 == 2047).all()), "the repeated byte's 2048 is not capped")
+    sc = A1.scan_chunks(x, packed)
     torch.cuda.synchronize()
     a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     a.record()
-    sc_r = A1.scan_chunks_ref(lk)
+    sc_r = A1.scan_chunks_ref(A1.lookup1_ref(x, packed))
     b.record()
     b.synchronize()
     check(all(torch.equal(u, v) for u, v in zip(sc, sc_r)),
-          "ans1_scan (the main path's layout) differs from its plain version")
-    cut = lk.view(n, 4, q)[:, :, q - s:]
-    padded = torch.ones((s, 128), dtype=torch.int32, device=dev)
-    padded[:, :4 * n] = cut.flip(2).permute(2, 0, 1).reshape(s, 4 * n)
-    padded = padded.view(s, 1, 128)
-    sp = A1.scan(padded)
-    sp_r = A1.scan_ref(padded)
-    check(all(torch.equal(u, v) for u, v in zip(sp, sp_r)),
-          "ans1_scan (the padded layout) differs from its plain version")
-    rec["ans1_scan"] = {"max_abs_err": max_abs_err([*sc, *sp], [*sc_r, *sp_r]),
-                        "plain_ms": a.elapsed_time(b)}
-    del sc_r, sp, sp_r
+          "ans1_scan differs from its plain version")
+    rec["ans1_scan"] = {"max_abs_err": max_abs_err(sc, sc_r), "plain_ms": a.elapsed_time(b),
+                        **recip_check(dev)}
+    del sc_r
 
     e = sc[0].view(n * (BLOCK // CHUNK), 128, 128)
     cp = A1.compact(e)
@@ -467,21 +490,21 @@ def phase2_ans1(dev, data: bytes) -> dict:
 
     # times at one main-path launch, one 4 MiB chunk, but the scan's at the
     # six chunks of its one plain run (a launch of one chunk takes as long)
-    x1, p1, lk1 = x[:1], packed[:1], lk[:1].contiguous()
+    x1, p1 = x[:1], packed[:1]
     e1 = e[:BLOCK // CHUNK]
-    pos = torch.arange(BLOCK, device=dev)
-    sym = x1.long()
-    idx = torch.where(pos % q == 0, 0, torch.roll(sym, 1, dims=1)) * 256 + sym
-    timed(rec, "ans1_lookup", lambda: A1.lookup1(x1, p1), lambda: A1.lookup1_ref(x1, p1),
-          (x1, p1), BLOCK, library=lambda: p1.gather(1, idx))
     r = rec["ans1_scan"]
-    r.update(ms=time_ms(lambda: A1.scan_chunks(lk)), library_ms=None,
-             **bound(lk, sc, OPS_PER_ELEMENT["ans1_scan"] * lk.numel()))
-    lk32 = lk1.expand(32, BLOCK).contiguous()
+    r.update(ms=time_ms(lambda: A1.scan_chunks(x, packed)), library_ms=None,
+             **bound((x, packed), sc, OPS_PER_ELEMENT["ans1_scan"] * x.numel()))
+    x32, p32 = x1.expand(32, BLOCK).contiguous(), p1.expand(32, 65536).contiguous()
+    e32, s32 = A1.scan_chunks(x32, p32)
+    check(bool((e32 == sc[0][:1]).all() and (s32 == sc[1][:1]).all()),
+          "ans1_scan: 32 copies of a chunk in one launch differ from its checked output")
+    del e32
     clock = sm_clock_mhz()
-    r.update(steps=q, ms_1_chunk=time_ms(lambda: A1.scan_chunks(lk1)),
-             ms_32_chunks=time_ms(lambda: A1.scan_chunks(lk32)), sm_clock_max_mhz=clock,
-             cycles_per_step=r["ms"] * 1e-3 * clock * 1e6 / q, **scan_chain(dev, lk1, q))
+    r.update(steps=q, ms_1_chunk=time_ms(lambda: A1.scan_chunks(x1, p1)),
+             ms_32_chunks=time_ms(lambda: A1.scan_chunks(x32, p32)), sm_clock_max_mhz=clock,
+             **scan_chain(dev, lk_r[0, :16].contiguous(), q))
+    r["cycles_per_step"] = r["ms_1_chunk"] * 1e-3 * clock * 1e6 / q
     r["floor_ms"] = q * r["chain_cycles_per_step"] / (clock * 1e3)
     timed(rec, "ans1_compact", lambda: A1.compact(e1), lambda: A1.compact_ref(e1),
           e1, e1.numel(), library=lambda: (torch.masked_select(e1 & 0xFFFF, e1 >= 1 << 16),
@@ -813,7 +836,10 @@ def main() -> int:
           f"{r['ms_32_chunks']:.4f} ms; measured {r['cycles_per_step']:.1f} cycles a step at "
           f"the {r['sm_clock_max_mhz']:.0f} MHz maximum SM clock; the chain alone "
           f"(scan_chain, clock64) {r['chain_cycles_per_step']:.1f} cycles a step, a floor of "
-          f"{r['steps']} x {r['chain_cycles_per_step']:.1f} cycles = {r['floor_ms']:.4f} ms")
+          f"{r['steps']} x {r['chain_cycles_per_step']:.1f} cycles = {r['floor_ms']:.4f} ms, "
+          f"one chunk at {r['ms_1_chunk'] / r['floor_ms']:.3f} x the floor; reciprocal "
+          f"against x / f: {r['recip_mismatches']} mismatches in {r['recip_pairs']} pairs "
+          f"({r['recip_check_s']:.2f} s)")
     for shape, a in kern["ksort"]["at"].items():
         print(f"phase 2: ksort at {shape}: kernel {a['ms']:.4f} ms, plain {a['plain_ms']:.4f} "
               f"ms, library call {a['library_ms']:.4f} ms, bound {a['bound_ms']:.4f} ms "
@@ -881,7 +907,7 @@ def main() -> int:
                                                   "bound_by", "library_ms")},
              "timed_at": TIMED_AT.get(name, "256 x 16 KiB")}
         for key in ("ms_1_chunk", "ms_32_chunks", "cycles_per_step", "chain_cycles_per_step",
-                    "floor_ms", "at"):
+                    "floor_ms", "recip_pairs", "recip_mismatches", "at"):
             if key in kern[name]:
                 k[key] = kern[name][key]
         if also:

@@ -1,4 +1,5 @@
-// Order-1 rANS (ANS1) encode stage for Hopper (sm_90a): three kernels.
+// Order-1 rANS (ANS1) encode stage for Hopper (sm_90a): two kernels, and
+// two measurements beside them on no codec path.
 //
 // Wire semantics are those of kanzi_tpu/entropy/ans.py, order 1: 4 MiB
 // chunks, four 32-bit states (state k walks quarter k backward), logRange 11
@@ -21,152 +22,274 @@ namespace {
 constexpr uint32_t kAnsTop = 1u << 15;
 
 // ---------------------------------------------------------------------------
-// kernel 1: the order-1 table lookup
+// the step, with a reciprocal in place of the divide
 // ---------------------------------------------------------------------------
 //
-// Replaces kanzi_tpu/ops/ans_pallas.py _lookup1_kernel (:885), an MXU one-hot
-// contraction over the high 9 index bits and an elementwise one-hot over the
-// low 7, and the context computation before it (:948-951).  Here a plain
-// gather: one thread codes 4 positions, reading one u32 of symbols and the
-// byte before them (the context; 0 at a quarter start, which falls on a
-// multiple of 4 since C / 4 does), and writes the four packed entries with
-// one 16-byte store.  The chunk's 256 KiB table does not fit in shared
-// memory, so it is read through L2 (__ldg).  Bound on this card: DRAM
-// bytes, 1 read and 4 written per position, plus the table once per chunk.
+// For 1 <= f < 2^31, l = ceil(log2 f) and m = ceil(2^(31 + l) / f), which
+// lies in [2^31, 2^32): umulhi(2x, m) >> l == x / f for every x < 2^31.
+// (m = (2^(31+l) + d) / f with 0 <= d < f, so 2x m / 2^(32+l) exceeds x / f
+// by less than x / 2^(31+l) < 1 / f, too little to reach the next integer.)
+// This is the Granlund-Montgomery form of F. Giesen's rans_byte.h with the
+// dividend doubled instead of the shift cut by one, so f = 1 (m = 2^31,
+// l = 0) needs no case of its own.  ans1_cuda.py recip_table is its plain
+// version, and recip_check_kernel below tests it for every f < 2^11 and
+// every x < 2^31.
+//
+// The chain carries the doubled state st2 = 2 st (st < 2^31), the
+// reciprocal's dividend as it is.  Then h = umulhi(st2, m) gives st / f as
+// h >> l and, when the step emits and the state to divide is st >> 16,
+// (st >> 16) / f as h >> (l + 16) (floor(floor(a / b) / c) ==
+// floor(a / (b c))): the renormalisation picks a shift, off the chain,
+// instead of feeding the divide.  With x the renormalised state and
+// q = x / f, (q << lr) + (x - q f) + cm == x + cm + q (2^lr - f), doubled.
+// On the chain: umulhi, shift, multiply-add.
 
-constexpr int kLookupThreads = 256;
+struct Recip {
+  uint32_t m, l;
+};
 
-__global__ void __launch_bounds__(kLookupThreads)
-lookup1_kernel(const uint8_t* __restrict__ chunks, const int32_t* __restrict__ packed,
-               int32_t* __restrict__ out, int n, int c) {
-  const long long groups = static_cast<long long>(c >> 2);
-  const long long g = static_cast<long long>(blockIdx.x) * kLookupThreads + threadIdx.x;
-  if (g >= n * groups) return;
-  const long long row = g / groups;
-  const int p0 = static_cast<int>(g - row * groups) << 2;
-  const uint8_t* src = chunks + row * c;
-  const int32_t* tbl = packed + row * 65536;
-  const uint32_t syms = reinterpret_cast<const uint32_t*>(src)[p0 >> 2];
-  uint32_t ctx = p0 % (c >> 2) == 0 ? 0u : src[p0 - 1];
-  int32_t v[4];
-#pragma unroll
-  for (int b = 0; b < 4; ++b) {
-    const uint32_t s = (syms >> (8 * b)) & 255u;
-    v[b] = __ldg(tbl + ((ctx << 8) | s));
-    ctx = s;
-  }
-  reinterpret_cast<int4*>(out + row * c)[p0 >> 2] = make_int4(v[0], v[1], v[2], v[3]);
+__device__ inline Recip recip(uint32_t f) {
+  const uint32_t l = 32 - __clz(static_cast<int>(f - 1));   // ceil(log2 f); __clz(0) = 32
+  return {static_cast<uint32_t>(((1ull << (31 + l)) + f - 1) / f), l};
+}
+
+// The operands of a symbol with frequency f, less its cm: {2 f << (31 - lr)
+// (the doubled renormalisation threshold), m, l, 2 (2^lr - f)}.
+__device__ inline uint4 step_operands(uint32_t f, int lr) {
+  const Recip r = recip(f);
+  return make_uint4(f << (32 - lr), r.m, r.l, ((1u << lr) - f) << 1);
+}
+
+// One step of a lane's chain on the doubled state st2, the operands of its
+// symbol in s with 2 cm packed above l (s.z = l | 2 cm << 5; the funnel
+// shift reads the low 5 bits).  The emitted word (flag << 16 | val, 0 where
+// nothing was emitted) goes to *word.
+__device__ __forceinline__ uint32_t ans_step(uint32_t st2, uint4 s, uint32_t* word) {
+  const bool em = st2 >= s.x;
+  *word = em ? (0x10000u | ((st2 >> 1) & 0xFFFFu)) : 0u;
+  const uint32_t q = __funnelshift_r(__umulhi(st2, s.y), 0u, em ? s.z + 16 : s.z);
+  const uint32_t x2 = em ? (st2 >> 17) << 1 : st2;
+  return q * s.w + (x2 + (s.z >> 5));   // the sum off the chain, then one multiply-add
 }
 
 // ---------------------------------------------------------------------------
-// kernel 2: the rANS state scan
+// kernel 1: the order-1 lookup and the state scan, fused
 // ---------------------------------------------------------------------------
 //
 // Replaces kanzi_tpu/ops/ans_pallas.py _scan_kernel (:80), which steps all
-// 128-lane rows in lockstep and keeps the states in VMEM across its
-// sequential grid.  The lanes are independent chains, so one thread runs one
-// lane's whole chain of `steps` steps, with exact uint32 `/` (the TPU's f32
-// quotient and correction existed only because it has no integer divide).
-// Two layouts:
-//   step-major (chunked == 0): _scan's contract, lane l's entry of step t at
-//     t * lanes + l, its word at the same place (the tests' padded lanes);
-//   chunked (chunked == 1): the main path's, lk the lookup's (N, C) output
-//     in byte order, lane l = 4n + k walking quarter k of chunk n backward
-//     (entry n*C + k*q + q-1-t, q = steps) and storing its word straight at
-//     its forward wire position n*C + 4*(q-1-t) + 3-k, so no relayout pass
-//     follows: the compaction reads the scan's output as it is.
-// Only the real lanes run (4 per chunk, not the TPU's 128-lane padding).
-// Bound on this card: the serial dependence of each chain (a divide per
-// step), not bytes: a 4 MiB chunk gives four threads.  The entries do not
-// depend on the state, so they are read kAhead steps ahead of the chain,
-// one group in registers while the group before it is coded.
+// 128-lane rows in lockstep with an f32 quotient and a correction and keeps
+// the states in VMEM across its sequential grid, and _lookup1_kernel (:885),
+// an MXU one-hot contraction that writes each position's packed entry to
+// device memory for the scan to read back.  One CTA a chunk; its 4 real
+// lanes (not the TPU's 128-lane padding) each walk one quarter backward and
+// store the word of step t straight at its forward wire position
+// n*C + 4*(q-1-t) + 3-k (the four lanes are neighbours in a warp, so a
+// step's stores fill one 16-byte segment), so no relayout pass follows and
+// the compaction reads the output as it is.
+//
+// Bound on this card: the latency of each lane's serial chain, not bytes (a
+// 4 MiB chunk gives four chains).  A warp issues its instructions in order,
+// so whatever one thread does beside its chain waits behind the chain's
+// stalls; so the work is split between two warps:
+//   - warp 1, lanes 0-3, the producers: lane k reads quarter k's bytes
+//     backward in aligned 16-byte loads, kAheadVec groups of 16 steps ahead
+//     (the vector below the quarter's start reads as zeros: its first
+//     byte's context is 0); gathers each step's entry packed[n][ctx << 8 |
+//     sym] through L2 (the chunk's 256 KiB table) one group ahead; and
+//     writes the step's operands (step_operands from a 2^lr-entry shared
+//     table, which the CTA builds at its start with exact 64-bit division,
+//     and 2 cm) into its lane's ring of kRing steps in shared memory;
+//   - warp 0, lanes 0-3, the chains: one 16-byte shared load a step, the
+//     step, one store.
+// Each lane pair hands over groups through two counts in shared memory,
+// each written after a block fence (without the fences the card reorders
+// the counts and the ring's reads and writes, and the output goes wrong).
+// The producer publishes every kPublish groups, and the chain polls only
+// when it has used the groups it last saw published: a fence waits for the
+// thread's memory operations in flight, so each one costs.
 
-constexpr int kScanThreads = 128;
-constexpr int kAhead = 16;
+constexpr int kGroup = 16;                  // steps a group: one 16-byte vector
+constexpr int kRingGroups = 8;              // groups of operands a lane's ring holds
+constexpr int kRing = kRingGroups * kGroup;
+constexpr int kPublish = 4;                 // groups a producer publishes at once
+constexpr int kAheadVec = 4;                // byte vectors ahead, in groups
+constexpr int kScanThreads = 64;            // warp 0: chains; warp 1: producers
 
-// One step of a lane's chain on entry e = f | cm << lr: the emitted word
-// (flag << 16 | val, 0 where nothing was emitted) goes to *word.
-__device__ __forceinline__ uint32_t ans_step(uint32_t st, uint32_t e, int lr, uint32_t* word) {
-  const uint32_t f = e & ((1u << lr) - 1u);
-  const uint32_t cm = e >> lr;
-  const bool em = (st >> (31 - lr)) >= f;   // st >= f << (31 - lr)
-  *word = em ? (0x10000u | (st & 0xFFFFu)) : 0u;
-  if (em) st >>= 16;
-  const uint32_t q = st / f;
-  return (q << lr) + (st - q * f) + cm;
+// Group j's 16 table entries: step 16j + i codes byte 15 - i of v, its
+// context the byte below it (lo's top byte below byte 0).
+__device__ __forceinline__ void gather_entries(const int32_t* __restrict__ tbl, uint4 v,
+                                               uint4 lo, uint32_t* ent) {
+  const uint32_t w[5] = {lo.w, v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int b = 0; b < kGroup; ++b) {
+    const uint32_t word = w[1 + (b >> 2)];
+    const int at = b & 3;
+    // (ctx << 8) | sym: sym byte `at` of word, ctx the byte before it
+    const uint32_t idx = at ? __byte_perm(word, 0u, at | (at - 1) << 4 | 0x4400)
+                            : __byte_perm(word, w[b >> 2], 0x4470) & 0xFFFFu;
+    ent[kGroup - 1 - b] = static_cast<uint32_t>(__ldg(tbl + idx));
+  }
+}
+
+__device__ __forceinline__ int poll(const int* p) {
+  return *reinterpret_cast<const volatile int*>(p);
+}
+
+__device__ __forceinline__ void publish(int* p, int v) {
+  *reinterpret_cast<volatile int*>(p) = v;
 }
 
 __global__ void __launch_bounds__(kScanThreads)
-scan_kernel(const int32_t* __restrict__ lk, int32_t* __restrict__ emit,
-            int32_t* __restrict__ states, int lanes, int steps, int lr, int chunked) {
-  const int l = static_cast<int>(blockIdx.x) * kScanThreads + threadIdx.x;
-  if (l >= lanes) return;
-  long long in0, out0, din, dout;  // lane l's entry / word of step t: x0 + t * dx
-  if (chunked) {
-    const long long q = steps;
-    const long long base = static_cast<long long>(l >> 2) * 4 * q;
-    const int k = l & 3;
-    in0 = base + k * q + q - 1;
-    din = -1;
-    out0 = base + 4 * (q - 1) + 3 - k;
-    dout = -4;
-  } else {
-    in0 = out0 = l;
-    din = dout = lanes;
-  }
-  uint32_t st = kAnsTop;
-  uint32_t cur[kAhead], nxt[kAhead];
+scan_kernel(const uint8_t* __restrict__ chunks, const int32_t* __restrict__ packed,
+            int32_t* __restrict__ emit, int32_t* __restrict__ states, int c, int lr) {
+  extern __shared__ uint4 smem[];
+  uint4* ops = smem;                                          // by f (entry 0 unused)
+  uint4* ring = smem + (1 << lr);                             // 4 lanes x kRing steps
+  int* counts = reinterpret_cast<int*>(ring + 4 * kRing);     // produced[4], consumed[4]
+  for (int f = 1 + threadIdx.x; f < (1 << lr); f += kScanThreads) ops[f] = step_operands(f, lr);
+  if (threadIdx.x < 8) counts[threadIdx.x] = 0;
+  __syncthreads();
+  const int k = threadIdx.x & 31;
+  if (k >= 4) return;
+  const long long chunk = blockIdx.x;
+  const int q = c >> 2;
+  const int groups = q / kGroup;
+  uint4* mine = ring + k * kRing;
+  int* produced = counts + k;
+  int* consumed = counts + 4 + k;
+  if (threadIdx.x >= 32) {
+    const uint4* vec =
+        reinterpret_cast<const uint4*>(chunks + chunk * c + static_cast<long long>(k) * q);
+    const int32_t* tbl = packed + chunk * 65536;
+    const uint32_t fmask = (1u << lr) - 1u;
+    // group j codes vector groups - 1 - j; below the quarter, zeros
+    auto load = [&](int j) {
+      return j < groups ? __ldg(vec + (groups - 1 - j)) : make_uint4(0u, 0u, 0u, 0u);
+    };
+    uint4 v[kAheadVec];   // at group j: the vectors of groups j + 1 .. j + kAheadVec
 #pragma unroll
-  for (int i = 0; i < kAhead; ++i) cur[i] = i < steps ? static_cast<uint32_t>(lk[in0 + i * din]) : 1u;
-  for (int t0 = 0; t0 < steps; t0 += kAhead) {
+    for (int i = 0; i < kAheadVec; ++i) v[i] = load(1 + i);
+    uint32_t ent[kGroup];
+    gather_entries(tbl, load(0), v[0], ent);
+#pragma unroll 1
+    for (int j = 0; j < groups; ++j) {
+      uint4 s[kGroup];
 #pragma unroll
-    for (int i = 0; i < kAhead; ++i) {
-      const long long t = t0 + kAhead + i;
-      nxt[i] = t < steps ? static_cast<uint32_t>(lk[in0 + t * din]) : 1u;
-    }
-#pragma unroll
-    for (int i = 0; i < kAhead; ++i) {
-      if (t0 + i < steps) {
-        uint32_t word;
-        st = ans_step(st, cur[i], lr, &word);
-        emit[out0 + static_cast<long long>(t0 + i) * dout] = static_cast<int32_t>(word);
+      for (int i = 0; i < kGroup; ++i) {
+        s[i] = ops[ent[i] & fmask];
+        s[i].z |= (ent[i] >> lr) << 6;
       }
-      cur[i] = nxt[i];
+      gather_entries(tbl, v[0], v[1], ent);   // group j + 1
+#pragma unroll
+      for (int i = 0; i + 1 < kAheadVec; ++i) v[i] = v[i + 1];
+      v[kAheadVec - 1] = load(j + 1 + kAheadVec);
+      while (j - poll(consumed) >= kRingGroups) {
+      }
+      __threadfence_block();
+      uint4* slot = mine + (j % kRingGroups) * kGroup;
+#pragma unroll
+      for (int i = 0; i < kGroup; ++i) slot[i] = s[i];
+      if (j % kPublish == kPublish - 1 || j == groups - 1) {
+        __threadfence_block();
+        publish(produced, j + 1);
+      }
     }
+  } else {
+    int32_t* out = emit + chunk * c + 4LL * (q - 1) + 3 - k;   // step t at out - 4t
+    uint32_t st2 = kAnsTop << 1;
+    int avail = 0;   // groups seen produced
+#pragma unroll 1
+    for (int j = 0; j < groups; ++j) {
+      if (j >= avail) {
+        while ((avail = poll(produced)) <= j) {
+        }
+        __threadfence_block();
+      }
+      const uint4* slot = mine + (j % kRingGroups) * kGroup;
+#pragma unroll
+      for (int i = 0; i < kGroup; ++i) {
+        uint32_t word;
+        st2 = ans_step(st2, slot[i], &word);
+        out[-4 * i] = static_cast<int32_t>(word);
+      }
+      out -= 4 * kGroup;
+      __threadfence_block();
+      publish(consumed, j + 1);
+    }
+    states[chunk * 4 + k] = static_cast<int32_t>(st2 >> 1);
   }
-  states[l] = static_cast<int32_t>(st);
 }
 
 // The chain alone, to measure its floor: one thread runs `steps` (a multiple
-// of kAhead) of scan_kernel's steps over kAhead entries held in registers,
-// with no load and no store inside the timed loop, and counts the SM cycles
-// with clock64.  The empty asm makes each entry opaque at every step, so the
-// compiler cannot hoist the divide's work on f out of the loop.  Not on any
-// codec path; chip_smoke.py calls it beside ans1_scan.
+// of kGroup) of scan_kernel's steps over the kGroup entries of lk, their
+// operands computed before the loop and held in registers, with no load or
+// store inside the timed loop, and counts the SM cycles with clock64.  The
+// empty asm makes each step's operands opaque, so the compiler cannot carry
+// work on them across steps.  Not on any codec path; chip_smoke.py calls it
+// beside ans1_scan.
 __global__ void scan_chain_kernel(const int32_t* __restrict__ lk, int32_t* __restrict__ out,
                                   long long* __restrict__ cycles, int steps, int lr) {
-  uint32_t ent[kAhead];
+  uint4 s[kGroup];
 #pragma unroll
-  for (int i = 0; i < kAhead; ++i) ent[i] = static_cast<uint32_t>(lk[i]);
-  uint32_t st = kAnsTop, acc = 0;
+  for (int i = 0; i < kGroup; ++i) {
+    const uint32_t e = static_cast<uint32_t>(lk[i]);
+    s[i] = step_operands(e & ((1u << lr) - 1u), lr);
+    s[i].z |= (e >> lr) << 6;
+  }
+  uint32_t st2 = kAnsTop << 1, acc = 0;
   const long long c0 = clock64();
-  for (int t0 = 0; t0 < steps; t0 += kAhead) {
+  for (int t0 = 0; t0 < steps; t0 += kGroup) {
 #pragma unroll
-    for (int i = 0; i < kAhead; ++i) {
-      uint32_t e = ent[i], word;
-      asm volatile("" : "+r"(e));
-      st = ans_step(st, e, lr, &word);
+    for (int i = 0; i < kGroup; ++i) {
+      asm volatile("" : "+r"(s[i].x), "+r"(s[i].y), "+r"(s[i].z), "+r"(s[i].w));
+      uint32_t word;
+      st2 = ans_step(st2, s[i], &word);
       acc ^= word;
     }
   }
   const long long c1 = clock64();
-  out[0] = static_cast<int32_t>(st);
+  out[0] = static_cast<int32_t>(st2 >> 1);
   out[1] = static_cast<int32_t>(acc);
   cycles[0] = c1 - c0;
 }
 
+// The reciprocal against exact division, exhaustively: for every f in
+// [1, 2^lr) and every x < 2^31 (every state), umulhi(2x, m) >> l must equal
+// x / f.  x / f comes from one exact division at the start of each thread's
+// run of kCheckRun values, then counts up: q and r step as x does.
+// counts[0] += the mismatches, counts[1] += the pairs compared.  Not on any
+// codec path; chip_smoke.py runs it for lr = 11 (~4.4e12 pairs).
+constexpr int kCheckThreads = 256;
+constexpr int kCheckRun = 1 << 16;
+
+__global__ void __launch_bounds__(kCheckThreads)
+recip_check_kernel(unsigned long long* __restrict__ counts) {
+  const uint32_t f = blockIdx.y + 1;
+  const uint32_t x0 = (blockIdx.x * kCheckThreads + threadIdx.x) * static_cast<uint32_t>(kCheckRun);
+  const Recip r = recip(f);
+  uint32_t miss = 0, q = x0 / f, rem = x0 % f;
+#pragma unroll 4
+  for (uint32_t x = x0; x < x0 + kCheckRun; ++x) {
+    miss += (__umulhi(x << 1, r.m) >> r.l) != q;
+    if (++rem == f) {
+      rem = 0;
+      ++q;
+    }
+  }
+  unsigned long long bad = miss, pairs = kCheckRun;
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    bad += __shfl_down_sync(0xFFFFFFFFu, bad, o);
+    pairs += __shfl_down_sync(0xFFFFFFFFu, pairs, o);
+  }
+  if ((threadIdx.x & 31) == 0) {
+    atomicAdd(counts, bad);
+    atomicAdd(counts + 1, pairs);
+  }
+}
+
 // ---------------------------------------------------------------------------
-// kernel 3: per-tile compaction of the packed words
+// kernel 2: per-tile compaction of the packed words
 // ---------------------------------------------------------------------------
 //
 // Replaces kanzi_tpu/ops/ans_pallas.py _compact_kernel (:480) in its
@@ -207,25 +330,13 @@ inline cudaStream_t as_stream(void* s) { return reinterpret_cast<cudaStream_t>(s
 
 extern "C" {
 
-int kz_ans1_lookup(const void* chunks, const void* packed, void* out, int n, int c,
-                   void* stream) {
+int kz_ans1_scan(const void* chunks, const void* packed, void* emit, void* states, int n,
+                 int c, int lr, void* stream) {
   if (n > 0 && c > 0) {
-    const long long groups = static_cast<long long>(n) * (c >> 2);
-    const int grid = static_cast<int>((groups + kLookupThreads - 1) / kLookupThreads);
-    lookup1_kernel<<<grid, kLookupThreads, 0, as_stream(stream)>>>(
+    const size_t smem = (sizeof(uint4) << lr) + 4 * kRing * sizeof(uint4) + 8 * sizeof(int);
+    scan_kernel<<<n, kScanThreads, smem, as_stream(stream)>>>(
         static_cast<const uint8_t*>(chunks), static_cast<const int32_t*>(packed),
-        static_cast<int32_t*>(out), n, c);
-  }
-  return static_cast<int>(cudaGetLastError());
-}
-
-int kz_ans1_scan(const void* lk, void* emit, void* states, int lanes, int steps, int lr,
-                 int chunked, void* stream) {
-  if (lanes > 0 && steps > 0) {
-    const int grid = (lanes + kScanThreads - 1) / kScanThreads;
-    scan_kernel<<<grid, kScanThreads, 0, as_stream(stream)>>>(
-        static_cast<const int32_t*>(lk), static_cast<int32_t*>(emit),
-        static_cast<int32_t*>(states), lanes, steps, lr, chunked);
+        static_cast<int32_t*>(emit), static_cast<int32_t*>(states), c, lr);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -235,6 +346,13 @@ int kz_ans1_scan_chain(const void* lk, void* out, void* cycles, int steps, int l
   scan_chain_kernel<<<1, 1, 0, as_stream(stream)>>>(
       static_cast<const int32_t*>(lk), static_cast<int32_t*>(out),
       static_cast<long long*>(cycles), steps, lr);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int kz_ans1_recip_check(void* counts, int lr, void* stream) {
+  const dim3 grid((1u << 31) / kCheckRun / kCheckThreads, (1u << lr) - 1u);
+  recip_check_kernel<<<grid, kCheckThreads, 0, as_stream(stream)>>>(
+      static_cast<unsigned long long*>(counts));
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -31,9 +31,10 @@ the emitted byte pairs.
 
 ``device``: None is the host path (native C++, else numpy); a torch device
 runs, through ops/ans_block.py, the order-0 encode (default chunk size and
-log range) and decode (default chunk size), and the order-1 encode of a
-block of at least one full 4 MiB chunk (default chunk size and log range),
-on the CUDA kernels (``cuda``) or their plain PyTorch versions (``cpu``).
+log range) and decode (default chunk size) of a block of at least four full
+16 KiB chunks, and the order-1 encode of a block of at least one full 4 MiB
+chunk (default chunk size and log range), on the CUDA kernels (``cuda``) or
+their plain PyTorch versions (``cpu``); the minimums are the reference's.
 Every other case is the host path whatever the device; order 1 decodes on
 the host, as in the reference, which has no device decoder for it.
 """
@@ -174,12 +175,12 @@ class ANSRangeEncoder:
         count = block.size
         if (self.device is not None
                 and self._chunk_size0 == DEFAULT_ANS0_CHUNK_SIZE
-                and self._log_range0 == DEFAULT_LOG_RANGE):
+                and self._log_range0 == DEFAULT_LOG_RANGE
+                and count >= (self.chunk_size if self.order else 4 * self.chunk_size)):
             from ..ops import ans_block
             if self.order == 0:
                 return ans_block.ans0_encode(block, bw, self.device)
-            if count >= self.chunk_size:
-                return ans_block.ans1_encode(block, bw, self.device)
+            return ans_block.ans1_encode(block, bw, self.device)
         from ..utils.native_coders import ans_encode_native
         if ans_encode_native(block, bw, self.order, self._chunk_size0,
                              self._log_range0):
@@ -277,7 +278,8 @@ class ANSRangeDecoder:
     def decode(self, count: int, br: BitReader | None = None) -> np.ndarray:
         br = br or self.br
         if (self.device is not None and self.order == 0 and self.bs_version >= 4
-                and self._chunk_size0 == DEFAULT_ANS0_CHUNK_SIZE):
+                and self._chunk_size0 == DEFAULT_ANS0_CHUNK_SIZE
+                and count >= 4 * self._chunk_size0):
             from ..ops import ans_block
             return ans_block.ans0_decode(count, br, self.device)
         if self.bs_version >= 4:

@@ -3,26 +3,31 @@ versions.
 
 Counterpart of kanzi_tpu/ops/ans_pallas.py (the order-1 parts:
 ``ans1_encode_chunks_pallas`` and the kernels it runs) and of
-kanzi_tpu/ops/ans.py ``ans1_encode_chunks``.  Three hand-written CUDA kernels
+kanzi_tpu/ops/ans.py ``ans1_encode_chunks``.  Two hand-written CUDA kernels
 (kanzi_tpu_torch/csrc/ans1.cu) replace the TPU's three:
 
-  lookup1   _lookup1_kernel   packed f | cum << 11 at ctx * 256 + sym
-  scan      _scan_kernel      the lockstep rANS state scan, one lane a chain
+  scan      _lookup1_kernel   packed f | cum << 11 at ctx * 256 + sym, and
+            + _scan_kernel    the rANS state scan on it, one lane a chain
   compact   _compact_kernel   per-tile stable partition of the emitted words
 
-Each wrapper runs its plain version (``*_ref``, same signature) when its
-tensors lie on the CPU, and launches its kernel when they lie on a CUDA
-device, or raises: there is no fallback.  Each launch adds one to the
-kernel's count in ``launches`` (ops/launch.py).
+Each wrapper runs its plain version when its tensors lie on the CPU
+(``scan_chunks``: ``scan_chunks_ref(lookup1_ref(...))``; ``compact``:
+``compact_ref``), and launches its kernel when they lie on a CUDA device, or
+raises: there is no fallback.  Each launch adds one to the kernel's count in
+``launches`` (ops/launch.py).
 
 A 4 MiB order-1 wire chunk is coded by four states, state k walking quarter
 k backward (entropy/ans.py ``_lane_layout_order1``); the context of a byte
 is the byte before it, 0 at each quarter start.  The forward payload orders
 the emissions by step, from the last step back, lanes 3..0 within a step:
 word (p, 3 - k) for byte p of quarter k.  The TPU emits into 128-lane
-step-major rows (``_scan``'s contract, kept by ``scan`` for the tests); the
-main path's ``scan_chunks`` runs only the 4N real lanes and stores each word
-straight at its forward position, so no relayout pass follows it.
+step-major rows (``_scan``'s contract, kept by ``scan_ref`` for the tests);
+the kernel runs only the 4N real lanes and stores each word straight at its
+forward position, so no relayout pass follows it.
+
+The kernel's step divides by a per-frequency reciprocal, not by ``/``:
+``recip_table`` and ``ans_step_recip_ref`` are its arithmetic in PyTorch,
+which the tests hold against the exact ``//`` of ``scan_ref``.
 
 The numpy-contract entry points take and return the layouts of kanzi_tpu's:
 chunks (N, C) u8 with C a multiple of 16384 (4 MiB on the wire; the tests
@@ -47,7 +52,7 @@ SCALE1 = 1 << LOG_RANGE1
 CHUNK = 16384                    # a compaction tile: 128 blocks of 128 words
 CHUNK1 = CHUNK << 8              # 4 MiB wire chunks (ANSRangeEncoder.java:126)
 
-KERNELS = ("ans1_lookup", "ans1_scan", "ans1_compact")
+KERNELS = ("ans1_scan", "ans1_compact")
 register(KERNELS)
 
 
@@ -60,7 +65,7 @@ def pack_tables(freq: torch.Tensor, cum: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# kernel 1: order-1 table lookup
+# kernel 1: the order-1 lookup and the rANS state scan, fused
 # ---------------------------------------------------------------------------
 
 def lookup1_ref(chunks: torch.Tensor, packed: torch.Tensor) -> torch.Tensor:
@@ -73,26 +78,6 @@ def lookup1_ref(chunks: torch.Tensor, packed: torch.Tensor) -> torch.Tensor:
     ctx = torch.where(pos % (c // 4) == 0, 0, torch.roll(sym, 1, dims=1))
     return packed.gather(1, ctx * 256 + sym)
 
-
-def lookup1(chunks: torch.Tensor, packed: torch.Tensor) -> torch.Tensor:
-    if chunks.device.type == "cpu":
-        return lookup1_ref(chunks, packed)
-    n, c = chunks.shape
-    if c % 16:
-        raise ValueError("chunk width must be a multiple of 16")
-    require(chunks, torch.uint8, (None, None))
-    require(packed, torch.int32, (n, 65536))
-    out = torch.empty((n, c), dtype=torch.int32, device=chunks.device)
-    if n:
-        with torch.cuda.device(chunks.device):
-            launch("ans1_lookup", chunks.data_ptr(), packed.data_ptr(),
-                   out.data_ptr(), n, c, stream(chunks))
-    return out
-
-
-# ---------------------------------------------------------------------------
-# kernel 2: the rANS state scan
-# ---------------------------------------------------------------------------
 
 def scan_ref(lk: torch.Tensor, lr: int = LOG_RANGE1):
     """``_scan``'s contract: lk (S, ...) int32, step-major, each lane's
@@ -118,19 +103,6 @@ def scan_ref(lk: torch.Tensor, lr: int = LOG_RANGE1):
     return emit.to(torch.int32).reshape(lk.shape), st.to(torch.int32).reshape(lk.shape[1:])
 
 
-def scan(lk: torch.Tensor, lr: int = LOG_RANGE1):
-    if lk.device.type == "cpu":
-        return scan_ref(lk, lr)
-    s = lk.shape[0]
-    lanes = lk.numel() // s if s else 0
-    require(lk, torch.int32, tuple(None for _ in lk.shape))
-    emit = torch.empty_like(lk)
-    states = torch.empty(lk.shape[1:], dtype=torch.int32, device=lk.device)
-    if lanes:
-        _launch_scan(lk, emit, states, lanes, s, lr, chunked=False)
-    return emit, states
-
-
 def scan_chunks_ref(lk: torch.Tensor, lr: int = LOG_RANGE1):
     """The main path's scan: lk (N, C) int32, lookup1's output in byte
     order -> (emit (N, C) int32 in forward wire order, states (N, 4)):
@@ -144,31 +116,70 @@ def scan_chunks_ref(lk: torch.Tensor, lr: int = LOG_RANGE1):
     return e.contiguous(), st.view(n, 4)
 
 
-def scan_chunks(lk: torch.Tensor, lr: int = LOG_RANGE1):
-    if lk.device.type == "cpu":
-        return scan_chunks_ref(lk, lr)
-    n, c = lk.shape
-    if c % 4:
-        raise ValueError("chunk width must be a multiple of 4")
-    require(lk, torch.int32, (None, None))
-    emit = torch.empty_like(lk)
-    states = torch.empty((n, 4), dtype=torch.int32, device=lk.device)
+def scan_chunks(chunks: torch.Tensor, packed: torch.Tensor, lr: int = LOG_RANGE1):
+    """The main path's lookup and scan: chunks (N, C) uint8, packed
+    (N, 65536) int32 (``pack_tables``, f | cum << lr) -> (emit (N, C) int32
+    in forward wire order, states (N, 4) int32), as
+    ``scan_chunks_ref(lookup1_ref(chunks, packed), lr)``."""
+    if chunks.device.type == "cpu":
+        return scan_chunks_ref(lookup1_ref(chunks, packed), lr)
+    n, c = chunks.shape
+    if c % 256:
+        raise ValueError("chunk width must be a multiple of 256")
+    if not 8 <= lr <= 11:   # the kernel's shared tables fit the default 48 KiB up to 11
+        raise ValueError("log range must lie in [8, 11]")
+    require(chunks, torch.uint8, (None, None))
+    require(packed, torch.int32, (n, 65536))
+    emit = torch.empty((n, c), dtype=torch.int32, device=chunks.device)
+    states = torch.empty((n, 4), dtype=torch.int32, device=chunks.device)
     if n and c:
-        _launch_scan(lk, emit, states, 4 * n, c // 4, lr, chunked=True)
+        with torch.cuda.device(chunks.device):
+            launch("ans1_scan", chunks.data_ptr(), packed.data_ptr(), emit.data_ptr(),
+                   states.data_ptr(), n, c, lr, stream(chunks))
     return emit, states
 
 
-def _launch_scan(lk, emit, states, lanes: int, steps: int, lr: int,
-                 chunked: bool) -> None:
-    if not 8 <= lr <= 15:
-        raise ValueError("log range must lie in [8, 15]")
-    with torch.cuda.device(lk.device):
-        launch("ans1_scan", lk.data_ptr(), emit.data_ptr(), states.data_ptr(),
-               lanes, steps, lr, int(chunked), stream(lk))
+def recip_table(lr: int):
+    """The kernel's reciprocals, (rcp, shift) int64 (2^lr,) indexed by f:
+    for f >= 1, shift = ceil(log2 f) and rcp = ceil(2^(31 + shift) / f), in
+    [2^31, 2^32), so that umulhi(2x, rcp) >> shift == x // f for every
+    x < 2^31, f = 1 included (rcp 2^31, shift 0).  This is the
+    Granlund-Montgomery form of F. Giesen's rans_byte.h, umulhi(x, rcp) >>
+    (shift - 1), with the dividend doubled instead of the shift cut by one,
+    which leaves f = 1 no case of its own.  Entry 0 is unused (0, 0)."""
+    f = torch.arange(1 << lr, dtype=torch.int64)
+    shift = torch.tensor([max(v - 1, 0).bit_length() for v in range(1 << lr)])
+    rcp = torch.zeros_like(f)
+    rcp[1:] = ((torch.ones_like(f[1:]) << (31 + shift[1:])) + f[1:] - 1) // f[1:]
+    return rcp, shift
+
+
+def umulhi_ref(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The high 32 bits of a * b for a, b in [0, 2^32) held in int64, in
+    16-bit halves of b so that no product passes 2^48."""
+    return (a * (b >> 16) + ((a * (b & 0xFFFF)) >> 16)) >> 16
+
+
+def ans_step_recip_ref(st2: torch.Tensor, e: torch.Tensor, lr: int, rcp: torch.Tensor,
+                       shift: torch.Tensor):
+    """One step of the kernel's chain on int64 tensors, on the doubled state
+    st2 = 2 st (st < 2^31, so st2 fits 32 bits and is the reciprocal's
+    dividend as it is): entry e = f | cm << lr -> (word flag << 16 | val, 0
+    where nothing was emitted; the next doubled state).  With h = umulhi(st2,
+    rcp), h >> shift is st // f and h >> (shift + 16) is (st >> 16) // f,
+    the quotient of the renormalised state when st emits; with x that state
+    and q = x // f, (q << lr) + (x - q * f) + cm == x + cm + q * (2^lr - f),
+    doubled throughout."""
+    f = e & ((1 << lr) - 1)
+    em = st2 >= f << (32 - lr)
+    word = torch.where(em, ((st2 >> 1) & 0xFFFF) | (1 << 16), 0)
+    q = umulhi_ref(st2, rcp[f]) >> torch.where(em, shift[f] + 16, shift[f])
+    x2 = torch.where(em, (st2 >> 17) << 1, st2)
+    return word, q * (((1 << lr) - f) << 1) + x2 + ((e >> lr) << 1)
 
 
 # ---------------------------------------------------------------------------
-# kernel 3: per-tile compaction
+# kernel 2: per-tile compaction
 # ---------------------------------------------------------------------------
 
 def compact_ref(e: torch.Tensor):
@@ -207,14 +218,13 @@ def compact(e: torch.Tensor):
 
 def ans1_encode_chunks_tensors(chunks: torch.Tensor, freq: torch.Tensor,
                                cum: torch.Tensor):
-    """Lookup, scan and compaction on ``chunks``' device: (payload (N, C)
+    """Lookup and scan, then compaction, on ``chunks``' device: (payload (N, C)
     int16 in 16 KiB tiles, each tile's words at its front; tile counts
     (N, C // 16384, 128) int32; states (N, 4) int32)."""
     n, c = chunks.shape
     if c % CHUNK:
         raise ValueError("chunk width must be a multiple of 16384")
-    lk = lookup1(chunks, pack_tables(freq, cum))
-    emit, states = scan_chunks(lk)
+    emit, states = scan_chunks(chunks, pack_tables(freq, cum))
     payload, counts = compact(emit.view(n * (c // CHUNK), 128, 128))
     return payload.view(n, c), counts.view(n, c // CHUNK, 128), states
 

@@ -53,12 +53,12 @@ _SIGNATURES = {
     "kz_huffman_decode": [_P, _P, _P, _P, _P, _P, _I, _P],
     # bufs, w0, w1, w2, w3, nb, n, stream
     "kz_lz_words": [_P, _P, _P, _P, _P, _I, _I, _P],
-    # chunks, packed, out, n, c, stream
-    "kz_ans1_lookup": [_P, _P, _P, _I, _I, _P],
-    # lk, emit, states, lanes, steps, lr, chunked, stream
-    "kz_ans1_scan": [_P, _P, _P, _I, _I, _I, _I, _P],
+    # chunks, packed, emit, states, n, c, lr, stream
+    "kz_ans1_scan": [_P, _P, _P, _P, _I, _I, _I, _P],
     # lk, out, cycles, steps, lr, stream (a measurement, on no codec path)
     "kz_ans1_scan_chain": [_P, _P, _P, _I, _I, _P],
+    # counts, lr, stream (the reciprocal's exhaustive check, on no codec path)
+    "kz_ans1_recip_check": [_P, _I, _P],
     # e, payload, counts, m, nb, stream
     "kz_ans1_compact": [_P, _P, _P, _I, _I, _P],
     # data, nops, nk, b, n, stream

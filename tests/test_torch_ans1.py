@@ -113,6 +113,44 @@ def test_scan_ref_matches_pallas(lr, steps):
         assert _max_state(lk, lr) > (1 << 31) - (1 << 22)
 
 
+@pytest.mark.parametrize("lr", [11, 12])
+def test_recip_table_matches_floor_division(lr):
+    """The kernel's reciprocal against //, for every f in [1, 2^lr - 1]: x at
+    0, 1, f - 1, f, f + 1, the edge of renormalisation (f << (31 - lr)) and
+    the multiples of f next to the top of the domain (every state below
+    2^31), and 2,000 random x a frequency; the shift by 16 more, which
+    divides the renormalised state x >> 16 of an emitting step."""
+    rcp, shift = A.recip_table(lr)
+    f = np.arange(1, 1 << lr, dtype=np.int64)[:, None]
+    top, edge = 1 << 31, f << (31 - lr)
+    near = top // f * f
+    x = np.concatenate([np.zeros_like(f), np.ones_like(f), f - 1, f, f + 1, edge - 1, edge,
+                        near - f - 1, near - f, near - 1, np.full_like(f, top - 1),
+                        np.random.default_rng(lr).integers(0, top, (f.size, 2000))], axis=1)
+    x, ft = torch.from_numpy(np.clip(x, 0, top - 1)), torch.from_numpy(f)
+    h = A.umulhi_ref(2 * x, rcp[ft])
+    assert torch.equal(h >> shift[ft], x // ft)
+    assert torch.equal(h >> (shift[ft] + 16), (x >> 16) // ft)
+    assert int(rcp[1]) == 1 << 31 and int(shift[1]) == 0      # f = 1: q = x exactly
+
+
+@pytest.mark.parametrize("lr", [11, 12])
+def test_recip_step_matches_pallas_scan(lr):
+    """The kernel's step, reciprocal and doubled state and all, over
+    _scan_case's 4,096 steps (freq 1, freq 2^lr - 1, states at the int32
+    edge) equals kanzi_tpu's _scan bit for bit."""
+    lk = _scan_case(lr, 4096)
+    emit, st = P._scan(jnp.asarray(lk), lr=lr)
+    rcp, shift = A.recip_table(lr)
+    x = torch.from_numpy(lk.reshape(4096, 128).astype(np.int64))
+    st2 = torch.full((128,), 2 << 15, dtype=torch.int64)
+    words = torch.empty_like(x)
+    for t in range(4096):
+        words[t], st2 = A.ans_step_recip_ref(st2, x[t], lr, rcp, shift)
+    assert np.array_equal(words.numpy().reshape(lk.shape), np.asarray(emit))
+    assert np.array_equal((st2 >> 1).numpy(), np.asarray(st).reshape(128))
+
+
 @pytest.mark.parametrize("rate", [0.0, 0.25, 0.75, 1.0])
 def test_compact_ref_matches_pallas(rate):
     rng = np.random.default_rng(int(rate * 100))
@@ -207,9 +245,7 @@ def test_ans1_wrappers_refuse_other_devices():
     """A wrapper takes its plain version only for CPU tensors."""
     meta = torch.empty((1, C), dtype=torch.uint8, device="meta")
     with pytest.raises(ValueError, match="CUDA tensor"):
-        A.lookup1(meta, torch.empty((1, 65536), dtype=torch.int32, device="meta"))
-    with pytest.raises(ValueError, match="CUDA tensor"):
-        A.scan(torch.empty((256, 1, 128), dtype=torch.int32, device="meta"))
+        A.scan_chunks(meta, torch.empty((1, 65536), dtype=torch.int32, device="meta"))
     with pytest.raises(ValueError, match="CUDA tensor"):
         A.compact(torch.empty((1, 128, 128), dtype=torch.int32, device="meta"))
     with pytest.raises(ValueError, match="unsupported device"):

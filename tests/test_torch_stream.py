@@ -13,6 +13,7 @@ import pytest
 from kanzi_tpu.app.block_compressor import LEVELS, BlockCompressor
 from kanzi_tpu_torch.core.bits import BitReader, BitWriter
 from kanzi_tpu_torch.core.errors import BitStreamError
+from kanzi_tpu_torch.entropy.ans import ANSRangeDecoder, ANSRangeEncoder
 from kanzi_tpu.io import stream as host
 from kanzi_tpu.ops import ans_block as jblock
 from kanzi_tpu.utils.corpus import mixed_corpus
@@ -113,3 +114,32 @@ def test_short_chunk_payload_rejected():
     br = BitReader(np.frombuffer(bw.getvalue(), np.uint8))
     with pytest.raises(BitStreamError, match="size mismatch"):
         ans_block.ans0_decode(2 * CHUNK, br, "cpu")
+
+
+@pytest.mark.parametrize("size,glue", [(4 * CHUNK - 1, False), (4 * CHUNK, True)],
+                         ids=["under_four_chunks", "four_chunks"])
+def test_ans0_gate_minimum(monkeypatch, size, glue):
+    """The order-0 gate takes the device glue only for blocks of at least
+    four full 16 KiB chunks, on encode and on decode, as kanzi_tpu's
+    (kanzi_tpu/entropy/ans.py); either side of that size the stream equals
+    the host coders' and decodes back."""
+    calls = []
+    for name in ("ans0_encode", "ans0_decode"):
+        real = getattr(ans_block, name)
+        monkeypatch.setattr(ans_block, name,
+                            lambda *a, _n=name, _f=real: calls.append(_n) or _f(*a))
+    block = mixed_corpus(size, seed=17)
+
+    def encode(device):
+        bw = BitWriter()
+        assert ANSRangeEncoder(bw, 0, device=device).encode(block) == size
+        return bw.getvalue()
+
+    wire = encode("cpu")
+    assert calls == (["ans0_encode"] if glue else [])
+    assert wire == encode(None)
+    for device in ("cpu", None):
+        out = ANSRangeDecoder(BitReader(np.frombuffer(wire, np.uint8)), 0,
+                              device=device).decode(size)
+        assert np.array_equal(np.asarray(out, np.uint8), block)
+    assert calls == (["ans0_encode", "ans0_decode"] if glue else [])
