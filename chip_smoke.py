@@ -12,7 +12,10 @@ Phases, one line each; any failure raises and the exit code is not 0:
      huffman.cu, ksort.cu, lz_words.cu), one nvcc per source, in parallel
   2  each kernel against its plain PyTorch version on the card, bit for bit:
      the order-0 and Huffman kernels on 256 chunks cut from
-     mixed_corpus(16 MiB, seed=7) plus edge rows, timed at 256 x 16 KiB;
+     mixed_corpus(16 MiB, seed=7) plus edge rows, timed at 256 x 16 KiB,
+     ans0_decode also on the CPU tests' corrupt cases (tables no valid stream
+     holds, cut lengths, states >= 2^31, an odd pitch) and with its cycles a
+     step (its ms x the maximum SM clock / 4,096);
      lz_words on 8 x 4 MiB rows of mixed_corpus(64 MiB, seed=12) (one flat
      dispatch of level 1), the last row's last 1 KiB repeating the KiB
      before it, so the tail rule shows; the order-1 kernels on 4 x 4 MiB
@@ -24,7 +27,10 @@ Phases, one line each; any failure raises and the exit code is not 0:
      cycles by clock64); the scan's reciprocal against exact division for
      every f < 2048 and every state x < 2^31 (csrc/ans1.cu
      recip_check_kernel, 0 mismatches or the run fails); ksort at (8, 2^22) x 2 and
-     (512, 2^16) x 5 operands, 2 keys, the last an iota; all times by CUDA
+     (512, 2^16) x 5 operands, 2 keys, the last an iota, with its schedule's
+     pass count and each kind of pass timed alone (and, untimed, at eight
+     small shapes of 1-8 operands that take the launcher's other paths);
+     all times by CUDA
      events, warm, median of 5, at one main-path launch's shape (ans1_scan
      at the six chunks of its plain run)
   3  ANS0 alone (transform NONE), 64 MiB of mixed_corpus(seed=12), 4 MiB
@@ -249,6 +255,14 @@ def phase2_ans0(dev, rows) -> dict:
     check(torch.equal(dec[0], x), "decode does not invert encode")
     check(torch.equal(dec[1], lengths), "decode consumed count differs")
     rec["ans0_decode"] = {"max_abs_err": max_abs_err(dec, dec_r)}
+    for label, args in corrupt_decode_cases(pay, lengths, states.to(torch.int64), freq,
+                                            cum).items():
+        got, want = A.decode(*args), A.decode_ref(*args)
+        check(all(torch.equal(a, b) for a, b in zip(got, want)),
+              f"decode differs from its plain version on {label}")
+        rec["ans0_decode"]["max_abs_err"] = max(rec["ans0_decode"]["max_abs_err"],
+                                                max_abs_err(got, want))
+        rec["ans0_decode"].setdefault("corrupt_cases", []).append(label)
 
     # times at the main path's shape: one 4 MiB block = 256 chunks
     m = 256
@@ -264,9 +278,36 @@ def phase2_ans0(dev, rows) -> dict:
     timed(rec, "ans0_compact", lambda: A.compact(wm, flm), lambda: A.compact_ref(wm, flm),
           (wm, flm), wm.numel(),
           library=lambda: (torch.masked_select(wm, flb), flb.sum(1)))
-    timed(rec, "ans0_decode", lambda: A.decode(pm, lm, sm, fm, cm),
-          lambda: A.decode_ref(pm, lm, sm, fm, cm), (pm, lm, sm, fm, cm), e)
+    r = timed(rec, "ans0_decode", lambda: A.decode(pm, lm, sm, fm, cm),
+              lambda: A.decode_ref(pm, lm, sm, fm, cm), (pm, lm, sm, fm, cm), e)
+    r["sm_clock_max_mhz"] = sm_clock_mhz()
+    r["cycles_per_step"] = r["ms"] * 1e-3 * r["sm_clock_max_mhz"] * 1e6 / (CHUNK // 4)
     return rec
+
+
+def corrupt_decode_cases(pay, lengths, states, freq, cum) -> dict:
+    """The decode cases of the CPU tests, on four rows of phase 2's encode:
+    tables no valid stream holds (bounds not monotone; a sum over 4,096;
+    a zero-frequency symbol holding slots; one symbol of frequency 4,096),
+    lengths cut by 6 bytes, states >= 2^31, and a pitch that is no multiple
+    of 16 with every length past it.  Each: the decode's five arguments."""
+    import torch
+    p, ln, st, f, c = pay[:4], lengths[:4], states[:4], freq[:4].clone(), cum[:4].clone()
+    c[0] = c[0].flip(0)
+    f[1] = f[1] * 2
+    c[1] = torch.cumsum(f[1], 0) - f[1]
+    k = int(torch.nonzero(f[2])[0])
+    f[2, k], c[2, k] = 0, 5000
+    f[3], c[3] = 0, 0
+    f[3, 9] = 4096
+    high = st.clone()
+    high[:, 0], high[:, 2] = 0xFFFFFFFF, (1 << 31) + 12345
+    w = int(ln.min()) - 3
+    return {"corrupt tables": (p, ln, st, f, c),
+            "lengths cut by 6": (p, ln - 6, st, freq[:4], cum[:4]),
+            "states >= 2^31": (p, ln, high, freq[:4], cum[:4]),
+            "pitch of odd width under the lengths": (p[:, :w].contiguous(), ln, st, freq[:4],
+                                                     cum[:4])}
 
 
 def huffman_edge_rows():
@@ -532,12 +573,56 @@ def ksort_library(ops: list):
     return [a.gather(1, order) for a in ops]
 
 
+def ksort_pass_ms(ops: list, nk: int) -> dict:
+    """The time of each kind of pass of ksort's schedule: each row launched
+    alone through kz_ksort on a stack of the operands (median of 3, CUDA
+    events; not a codec launch, no launch count), summed by kind."""
+    import numpy as np
+    import torch
+
+    from kanzi_tpu_torch.ops import ksort as K
+    from kanzi_tpu_torch.utils import cuda_build
+
+    buf = torch.stack(ops)
+    nops, b, n = buf.shape
+    lib = cuda_build.load()
+    s = torch.cuda.current_stream(buf.device).cuda_stream
+    out = {"first span": 0.0, "later spans": 0.0, "cross": 0.0}
+    for i, row in enumerate(K.ksort_schedule(n, nops, nk=nk)):
+        one = np.asarray([row], np.int32)
+
+        def run():
+            err = lib.kz_ksort(buf.data_ptr(), nops, nk, b, n, one.ctypes.data, 1, s)
+            check(err == 0, f"ksort pass {row}: kernel launch failed, cudaError {err}")
+        kind = "cross" if row[0] == K.CROSS else "first span" if i == 0 else "later spans"
+        out[kind] += time_ms(run, reps=3)
+    return out
+
+
+# small shapes that take the launcher's other paths: a span of 2, spans
+# below and at the register presort's width, 1 and 3-8 operands
+KSORT_EDGE_SHAPES = ((3, 2, 2), (2, 8, 2), (2, 16, 3), (4, 1 << 10, 1), (2, 1 << 12, 6),
+                     (2, 1 << 15, 7), (1, 1 << 16, 8), (5, 1 << 13, 4))
+
+
 def phase2_ksort(dev) -> dict:
     import math
+
+    import torch
 
     from kanzi_tpu_torch.ops import ksort as K
 
     rec = {"ksort": {"max_abs_err": 0, "at": {}}}
+    for i, (b, n, nops) in enumerate(KSORT_EDGE_SHAPES):
+        g = torch.Generator(device=dev).manual_seed(40 + i)
+        if nops == 1:
+            ops = [torch.argsort(torch.rand((b, n), generator=g, device=dev), dim=1).int()]
+        else:
+            ops = ksort_operands(dev, b, n, nops, seed=40 + i)
+        got = K.ksort_rows(ops, min(nops, 2))
+        want = K.ksort_rows_ref(ops, min(nops, 2))
+        check(all(x.equal(y) for x, y in zip(got, want)),
+              f"ksort differs from its plain version at ({b}, {n}) x {nops}")
     for i, (b, n, nops) in enumerate(KSORT_SHAPES):
         ops = ksort_operands(dev, b, n, nops, seed=20 + i)
         got = K.ksort_rows(ops, 2)
@@ -551,6 +636,8 @@ def phase2_ksort(dev) -> dict:
         timed({"ksort": at}, "ksort", lambda: K.ksort_rows(ops, 2),
               lambda: K.ksort_rows_ref(ops, 2), ops, b * n,
               library=lambda: ksort_library(ops), ops=2 * b * n * math.log2(n))
+        at["passes"] = len(K.ksort_schedule(n, nops, nk=2))
+        at["pass_ms"] = ksort_pass_ms(ops, 2)
         rec["ksort"]["at"][f"({b}, {n}) x {nops}"] = at
         if i == 0:
             rec["ksort"].update(at)
@@ -840,10 +927,15 @@ def main() -> int:
           f"one chunk at {r['ms_1_chunk'] / r['floor_ms']:.3f} x the floor; reciprocal "
           f"against x / f: {r['recip_mismatches']} mismatches in {r['recip_pairs']} pairs "
           f"({r['recip_check_s']:.2f} s)")
+    r = kern["ans0_decode"]
+    print(f"phase 2: ans0_decode: {r['cycles_per_step']:.1f} cycles a step at the "
+          f"{r['sm_clock_max_mhz']:.0f} MHz maximum SM clock; bit-equal to its plain version "
+          f"on {', '.join(r['corrupt_cases'])}")
     for shape, a in kern["ksort"]["at"].items():
         print(f"phase 2: ksort at {shape}: kernel {a['ms']:.4f} ms, plain {a['plain_ms']:.4f} "
               f"ms, library call {a['library_ms']:.4f} ms, bound {a['bound_ms']:.4f} ms "
-              f"({a['bound_by']})")
+              f"({a['bound_by']}); {a['passes']} passes, alone: "
+              + ", ".join(f"{k} {v:.4f} ms" for k, v in a["pass_ms"].items()))
     print(f"phase 2: done in {time.perf_counter() - t:.1f} s")
     if args.quick:
         return 0
@@ -907,7 +999,8 @@ def main() -> int:
                                                   "bound_by", "library_ms")},
              "timed_at": TIMED_AT.get(name, "256 x 16 KiB")}
         for key in ("ms_1_chunk", "ms_32_chunks", "cycles_per_step", "chain_cycles_per_step",
-                    "floor_ms", "recip_pairs", "recip_mismatches", "at"):
+                    "floor_ms", "recip_pairs", "recip_mismatches", "corrupt_cases", "passes",
+                    "pass_ms", "at"):
             if key in kern[name]:
                 k[key] = kern[name][key]
         if also:

@@ -195,82 +195,207 @@ compact_kernel(const int16_t* __restrict__ words, const uint8_t* __restrict__ fl
 // ---------------------------------------------------------------------------
 //
 // Replaces kanzi_tpu/ops/ans_pallas.py _decode_kernel (:661) and the
-// rank -> symbol _lookup_kernel (:47) that follows it (:864).  A 32-thread
-// CTA decodes 8 chunks, 4 threads per chunk, one per state.  Per chunk the
-// CTA builds in shared memory the 4096-slot slot -> symbol table and a
-// 256-entry freq | cum << 13 table (5 KiB per chunk, 40 KiB per CTA): the
-// reference decoder's own shape (kanzi_tpu/entropy/ans.py:380-383) in place
-// of the TPU's bucket words, so symbols come out directly and no rank pass
-// is needed.  Slot s maps to the first symbol whose uncapped bound
-// cum + freq exceeds s, the searchsorted rule of ops/ans.py.
-// Each of the 4096 steps: the four states update, then the refills, lane 3
-// consuming first: a warp ballot gives each lane the count of needing lanes
-// above it.  Payload reads are bounded by the row's real length (a byte past
-// it reads as 0), so a corrupt stream gives a consumed-count mismatch and
-// never an out-of-bounds read.  Bound on this card: the serial dependence of
-// a chunk's steps (shared-memory lookups, then a dependent global read).
+// rank -> symbol _lookup_kernel (:47) that follows it (:864).  A warp decodes
+// one chunk: its 32 lanes build the chunk's table and stage the start of its
+// payload, then lanes 0-3 run the four states.  A CTA holds two chunks, one
+// warp each, so a block's 256 chunks are 128 CTAs, fewer than the card's 132
+// SMs.  Bound on this card: the latency of one step
+// of a chunk's serial chain, 4,096 times over; the chunks of a launch run
+// side by side, so only a shorter step makes a launch faster.  What the
+// design does about it:
+//   - A table indexed by the slot alone (32 KiB of a chunk's 35): ent[slot]
+//     holds (f | sym << 24, slot - cum) as 8 bytes, so a state's update is
+//     one 64-bit shared load, a mask and a multiply-add,
+//     st = f (st >> 12) + (slot - cum) mod 2^32, with no second lookup
+//     behind the first, and the symbol comes with it.  Slot s belongs to the
+//     first symbol whose uncapped bound cum + freq (running max) exceeds s,
+//     255 past the last bound; f = min(freq & 0x1FFF, 4095),
+//     cum = cum & 0x1FFF: the searchsorted rule of decode_ref, which a
+//     corrupt table (bounds not monotone, a sum over 4,096, f = 0) keeps
+//     too.  A warp max-scan gives the bounds, then each lane walks the slots
+//     lane, lane + 32, ...
+//   - The payload staged ahead of the chain: a 1 KiB ring in shared memory,
+//     four quarters of 256 B, filled by cp.async 16-byte copies with zero
+//     fill, so a byte at or past the row's length reads as 0 and no copy
+//     reads past the pitch (a multiple of 16; the wrapper pads).  When the
+//     read pointer has entered quarter q, quarter q + 3 is copied into the
+//     slot of quarter q - 1 and quarter q + 2's copy, issued a quarter (at
+//     least 32 steps) earlier, is waited for.  The pointer is checked once
+//     a block of 16 steps (at most 144 bytes read), so the 16 steps unroll
+//     into one branch-free stretch.
+//   - A step's refills read no memory after the ballot: the ring's 16 bytes
+//     from ptr & ~7 (two 8-byte loads, issued at the end of the step before)
+//     are aligned by funnel shifts to the four words a step can take, and
+//     the ballot's count picks a lane's word with a select and a
+//     __byte_perm that also swaps its bytes and shifts the state.  The
+//     ballot orders the refills, lane 3 first (the wire).  The ballot and
+//     popcount sit on the chain, yet one lane running all four states
+//     without them measured no faster (PERF.md section 6), and four chunks a
+//     CTA measured slower, so four lanes a chunk and two chunks a CTA stay.
+//   - Each lane packs its symbols of 4 steps into a word of a 128-byte
+//     buffer in shared memory; every 16 steps each lane gathers 16 of the
+//     chunk's 64 new bytes with byte permutes and writes them at once.
 
-constexpr int kDecChunksPerCta = 8;
-constexpr int kDecThreads = 4 * kDecChunksPerCta;
+constexpr int kDecWarps = 2;                 // chunks a CTA, one warp each
+constexpr int kDecLanes = 4;                 // one per state
+constexpr unsigned kDecMask = 0xFu;
+constexpr uint32_t kRingBytes = 1024;        // payload ring, four quarters
+constexpr uint32_t kQuarter = kRingBytes / 4;
+constexpr int kDecBlock = 16;                // steps between ring checks and stores
 
-__global__ void __launch_bounds__(kDecThreads)
+// one chunk's shared memory (35 KiB)
+struct DecodeSmem {
+  uint2 ent[kScale];                         // (f | sym << 24, slot - cum) by slot
+  uint32_t bnd[256];                         // running-max bounds
+  uint32_t fc[256];                          // f | cum << 13
+  alignas(16) uint8_t ring[kRingBytes];
+  alignas(16) uint8_t obuf[128];             // decoded bytes, two blocks of 4 x 16
+};
+
+// cp.async of the 16 bytes at pos of a row into shared memory, zero-filled
+// past len (no byte read at or past it)
+__device__ __forceinline__ void stage16(uint8_t* smem, const uint8_t* row, uint32_t pos,
+                                        uint32_t len) {
+  const uint32_t n = pos < len ? min(len - pos, 16u) : 0u;
+  const uint8_t* src = row + (n ? pos : 0u);
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src), "r"(n)
+               : "memory");
+}
+
+__device__ __forceinline__ void stage_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void stage_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__global__ void __launch_bounds__(32 * kDecWarps)
 decode_kernel(const uint8_t* __restrict__ payload, long long pitch,
               const int32_t* __restrict__ lengths, const int32_t* __restrict__ states,
               const int32_t* __restrict__ freq, const int32_t* __restrict__ cum,
               uint8_t* __restrict__ out, int32_t* __restrict__ consumed, int n) {
-  __shared__ uint8_t lut[kDecChunksPerCta][kScale];
-  __shared__ uint32_t tbl[kDecChunksPerCta][256];
-  const int local = threadIdx.x >> 2;
-  const int j = threadIdx.x & 3;
-  const size_t row = static_cast<size_t>(blockIdx.x) * kDecChunksPerCta + local;
-  const bool active = row < static_cast<size_t>(n);
+  extern __shared__ __align__(16) unsigned char dec_smem[];
+  DecodeSmem& sh = reinterpret_cast<DecodeSmem*>(dec_smem)[threadIdx.x >> 5];
+  uint2* ent = sh.ent;
+  uint32_t* bnd = sh.bnd;
+  uint32_t* fc = sh.fc;
+  uint8_t* ring = sh.ring;
+  uint8_t* obuf = sh.obuf;
+  const int lane = threadIdx.x & 31;
+  const size_t row = static_cast<size_t>(blockIdx.x) * kDecWarps + (threadIdx.x >> 5);
+  if (row >= static_cast<size_t>(n)) return;
+  const uint8_t* pay = payload + row * pitch;
+  const int32_t l = lengths[row];
+  const uint32_t len = l <= 0 ? 0u : static_cast<uint32_t>(min(static_cast<long long>(l), pitch));
+  for (uint32_t q = lane; q < kRingBytes / 16; q += 32) {
+    stage16(ring + 16 * q, pay, 16 * q, len);
+  }
+  stage_commit();
 
-  for (int k = j; k < 256; k += 4) {
-    uint32_t e = 0;
-    if (active) {
-      const uint32_t fr = static_cast<uint32_t>(freq[row * 256 + k]) & 0x1FFFu;
-      const uint32_t cm = static_cast<uint32_t>(cum[row * 256 + k]) & 0x1FFFu;
-      e = fr | (cm << 13);
-    }
-    tbl[local][k] = e;
+  // lane owns symbols 8 lane .. 8 lane + 7; bounds by a warp max-scan
+  uint32_t b[8];
+  uint32_t run = 0;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int k = 8 * lane + i;
+    const uint32_t fr = static_cast<uint32_t>(freq[row * 256 + k]) & 0x1FFFu;
+    const uint32_t cm = static_cast<uint32_t>(cum[row * 256 + k]) & 0x1FFFu;
+    fc[k] = min(fr, kScale - 1) | (cm << 13);
+    run = max(run, cm + fr);
+    b[i] = run;
   }
-  __syncwarp();
-  // slots [bound[k-1], bound[k]) -> k; slots past the last bound -> 255
-  uint32_t prev = 0;
-  for (int k = 0; k < 256; ++k) {
-    const uint32_t e = tbl[local][k];
-    uint32_t hi = min((e & 0x1FFFu) + (e >> 13), kScale);
-    hi = max(hi, prev);
-    for (uint32_t s = prev + j; s < hi; s += 4) lut[local][s] = static_cast<uint8_t>(k);
-    prev = hi;
+  uint32_t incl = run;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const uint32_t v = __shfl_up_sync(kFull, incl, o);
+    if (lane >= o) incl = max(incl, v);
   }
-  for (uint32_t s = prev + j; s < kScale; s += 4) lut[local][s] = 255;
+  uint32_t excl = __shfl_up_sync(kFull, incl, 1);
+  if (lane == 0) excl = 0;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) bnd[8 * lane + i] = max(b[i], excl);
   __syncwarp();
+  int k = 0;
+  for (uint32_t s = lane; s < kScale; s += 32) {
+    while (k < 255 && bnd[k] <= s) ++k;
+    const uint32_t e = fc[k];
+    ent[s] = make_uint2((e & 0x1FFFu) | (static_cast<uint32_t>(k) << 24), s - (e >> 13));
+  }
+  stage_wait<0>();
+  __syncwarp();
+  if (lane >= kDecLanes) return;
 
-  uint32_t st = active ? static_cast<uint32_t>(states[row * 4 + j]) : 0u;
-  const uint32_t len = active ? static_cast<uint32_t>(lengths[row]) : 0u;
-  const uint8_t* pay = payload + (active ? row : 0) * pitch;
-  uint8_t* dst = out + (active ? row : 0) * kChunk;
-  const int group = threadIdx.x & 28;
-  uint32_t ptr = 0;
-  for (int t = 0; t < kChunk / 4; ++t) {
-    const uint32_t slot = st & (kScale - 1);
-    const uint32_t sym = lut[local][slot];
-    const uint32_t e = tbl[local][sym];
-    const uint32_t f = min(e & 0x1FFFu, kScale - 1);
-    st = f * (st >> kLogRange) + slot - (e >> 13);
-    const bool need = st < kAnsTop;
-    const unsigned g = (__ballot_sync(kFull, need) >> group) & 0xFu;
-    if (need) {
-      const uint32_t p = ptr + 2u * __popc(g >> (j + 1));
-      const uint32_t b0 = p < len ? pay[p] : 0u;
-      const uint32_t b1 = p + 1 < len ? pay[p + 1] : 0u;
-      st = (st << 16) | (b0 << 8) | b1;
+  const int j = lane;
+  const unsigned above = (0xEu << j) & kDecMask;       // lanes j+1..3
+  uint32_t st = static_cast<uint32_t>(states[row * 4 + j]);
+  uint8_t* dst = out + row * kChunk;
+  const uint2* window = reinterpret_cast<const uint2*>(ring);   // the ring as 8-byte words
+  uint32_t ptr = 0;                                     // payload bytes read
+  uint32_t quarter = 0;
+  uint2 q0 = window[0];                                 // the ring's 16 bytes from ptr & ~7
+  uint2 q1 = window[1];
+  for (int t0 = 0; t0 < kChunk / 4; t0 += kDecBlock) {
+    // a block of 16 steps reads less than 16 * 8 + 16 bytes from ptr & ~7
+    // on: the quarters of ptr and the next one, both landed
+    if (ptr / kQuarter != quarter) {                    // the same in the chunk's lanes
+      quarter = ptr / kQuarter;
+      __syncwarp(kDecMask);                             // quarter - 1 is read no more
+      const uint32_t base = (quarter + 3) * kQuarter;  // into the slot of quarter - 1
+#pragma unroll
+      for (uint32_t i = 0; i < kQuarter / 16 / kDecLanes; ++i) {
+        const uint32_t pos = base + 16 * (j + kDecLanes * i);
+        stage16(ring + (pos & (kRingBytes - 1)), pay, pos, len);
+      }
+      stage_commit();
+      stage_wait<1>();                                  // quarter + 2 has landed
+      __syncwarp(kDecMask);
     }
-    ptr += 2u * __popc(g);
-    if (active) dst[4 * t + 3 - j] = static_cast<uint8_t>(sym);
+    uint8_t* ob = obuf + ((t0 / kDecBlock) & 1) * 64;
+    uint32_t acc = 0;
+#pragma unroll
+    for (int s = 0; s < kDecBlock; ++s) {
+      const uint2 e = ent[st & (kScale - 1)];
+      // lo, hi: the ring's bytes ptr .. ptr + 7 (the four words a step can
+      // take), from the window read at the end of the step before
+      const uint32_t sh = (ptr & 2) * 8;
+      const bool up = ptr & 4;
+      const uint32_t lo = __funnelshift_r(up ? q0.y : q0.x, up ? q1.x : q0.y, sh);
+      const uint32_t hi = __funnelshift_r(up ? q1.x : q0.y, up ? q1.y : q1.x, sh);
+      st = (e.x & 0xFFFu) * (st >> kLogRange) + e.y;
+      const bool need = st < kAnsTop;
+      const unsigned g = __ballot_sync(kDecMask, need);
+      const unsigned c = __popc(g & above);             // refills before this lane's
+      // (st << 16) | the big-endian word at ptr + 2c
+      const uint32_t refill = __byte_perm(st, (c & 2) ? hi : lo, (c & 1) ? 0x1067 : 0x1045);
+      st = need ? refill : st;
+      ptr += 2u * __popc(g);
+      q0 = window[(ptr >> 3) & (kRingBytes / 8 - 1)];
+      q1 = window[((ptr >> 3) + 1) & (kRingBytes / 8 - 1)];
+      // lane j's symbols of 4 steps in one word: ob holds a row of 16 a lane
+      acc |= (e.x >> 24) << (8 * (s & 3));
+      if ((s & 3) == 3) {
+        *reinterpret_cast<uint32_t*>(ob + 16 * j + (s & ~3)) = acc;
+        acc = 0;
+      }
+    }
+    __syncwarp(kDecMask);
+    // output bytes 16 j .. 16 j + 15 of the block: steps 4 j .. 4 j + 3,
+    // lane 3's byte first in each
+    const uint32_t r3 = *reinterpret_cast<const uint32_t*>(ob + 48 + 4 * j);
+    const uint32_t r2 = *reinterpret_cast<const uint32_t*>(ob + 32 + 4 * j);
+    const uint32_t r1 = *reinterpret_cast<const uint32_t*>(ob + 16 + 4 * j);
+    const uint32_t r0 = *reinterpret_cast<const uint32_t*>(ob + 4 * j);
+    const uint32_t a_lo = __byte_perm(r3, r2, 0x5140), a_hi = __byte_perm(r3, r2, 0x7362);
+    const uint32_t b_lo = __byte_perm(r1, r0, 0x5140), b_hi = __byte_perm(r1, r0, 0x7362);
+    *reinterpret_cast<uint4*>(dst + 4 * t0 + 16 * j) =
+        make_uint4(__byte_perm(a_lo, b_lo, 0x5410), __byte_perm(a_lo, b_lo, 0x7632),
+                   __byte_perm(a_hi, b_hi, 0x5410), __byte_perm(a_hi, b_hi, 0x7632));
   }
-  if (active && j == 0) consumed[row] = static_cast<int32_t>(ptr);
+  stage_wait<0>();
+  if (j == 0) consumed[row] = static_cast<int32_t>(ptr);
 }
 
 inline cudaStream_t as_stream(void* s) { return reinterpret_cast<cudaStream_t>(s); }
@@ -313,8 +438,11 @@ int kz_ans0_decode(const void* payload, long long pitch, const void* lengths,
                    const void* states, const void* freq, const void* cum, void* out,
                    void* consumed, int n, void* stream) {
   if (n > 0) {
-    const int grid = (n + kDecChunksPerCta - 1) / kDecChunksPerCta;
-    decode_kernel<<<grid, kDecThreads, 0, as_stream(stream)>>>(
+    constexpr int smem = kDecWarps * sizeof(DecodeSmem);
+    const cudaError_t err =
+        cudaFuncSetAttribute(decode_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    decode_kernel<<<(n + kDecWarps - 1) / kDecWarps, 32 * kDecWarps, smem, as_stream(stream)>>>(
         static_cast<const uint8_t*>(payload), pitch, static_cast<const int32_t*>(lengths),
         static_cast<const int32_t*>(states), static_cast<const int32_t*>(freq),
         static_cast<const int32_t*>(cum), static_cast<uint8_t*>(out),

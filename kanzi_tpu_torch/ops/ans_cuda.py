@@ -263,12 +263,44 @@ def decode_ref(payload: torch.Tensor, lengths: torch.Tensor,
     return out, (2 * ptr[:, 0]).to(torch.int32)
 
 
+def decode_tables_ref(freq: torch.Tensor, cum: torch.Tensor):
+    """The decode kernel's per-chunk tables, indexed by the slot alone:
+    (sym (N, 4096) uint8, f (N, 4096) int64, d (N, 4096) int64), where slot
+    s belongs to symbol sym, f = min(freq[sym] & 0x1FFF, 4095) and
+    d = (s - (cum[sym] & 0x1FFF)) mod 2^32, so that a step is
+    st' = f (st >> 12) + d mod 2^32 (the kernel keeps sym in the top byte
+    of f's word).  Symbol k takes the slots from the running maximum of the
+    bounds cum + freq before it up to its own (none if its bound is not
+    above that maximum), and the slots past the last bound go to 255:
+    decode_ref's searchsorted rule, built here range by range."""
+    n = freq.shape[0]
+    dev = freq.device
+    fr = freq.long() & 0x1FFF
+    cm = cum.long() & 0x1FFF
+    bounds = torch.clamp(torch.cummax(cm + fr, dim=1).values, max=SCALE)
+    widths = torch.diff(bounds, dim=1, prepend=torch.zeros((n, 1), dtype=torch.int64,
+                                                             device=dev))
+    syms = torch.arange(256, device=dev)
+    sym = torch.full((n, SCALE), 255, dtype=torch.int64, device=dev)
+    for r in range(n):
+        run = torch.repeat_interleave(syms, widths[r])
+        sym[r, :run.numel()] = run
+    f = torch.clamp(fr, max=SCALE - 1).gather(1, sym)
+    d = (torch.arange(SCALE, device=dev) - cm.gather(1, sym)) & 0xFFFFFFFF
+    return sym.to(torch.uint8), f, d
+
+
 def decode(payload: torch.Tensor, lengths: torch.Tensor, states: torch.Tensor,
            freq: torch.Tensor, cum: torch.Tensor):
     if payload.device.type == "cpu":
         return decode_ref(payload, lengths, states, freq, cum)
     n = payload.shape[0]
     _require(payload, torch.uint8, (n, None))
+    p = payload.shape[1]
+    if p % 16 or p == 0:
+        # the kernel stages whole 16-byte lines of a row; bytes past the
+        # payload's width read as 0 either way
+        payload = torch.nn.functional.pad(payload, (0, 16 - p % 16))
     st32 = _i32(states).contiguous()
     for t, dt, shape in ((lengths, torch.int32, (n,)), (st32, torch.int32, (n, 4)),
                          (freq, torch.int32, (n, 256)), (cum, torch.int32, (n, 256))):

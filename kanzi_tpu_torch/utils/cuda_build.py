@@ -61,8 +61,8 @@ _SIGNATURES = {
     "kz_ans1_recip_check": [_P, _I, _P],
     # e, payload, counts, m, nb, stream
     "kz_ans1_compact": [_P, _P, _P, _I, _I, _P],
-    # data, nops, nk, b, n, stream
-    "kz_ksort": [_P, _I, _I, _I, _I, _P],
+    # data, nops, nk, b, n, schedule (host int32 rows), rows, stream
+    "kz_ksort": [_P, _I, _I, _I, _I, _P, _I, _P],
 }
 
 

@@ -279,3 +279,77 @@ def test_launch_counter_is_thread_safe():
     finally:
         sys.setswitchinterval(old)
         A.reset_launches()
+
+
+def _decode_via_tables(pay, length, states, freq, cum):
+    """One chunk decoded through decode_tables_ref's slot-indexed arrays, step
+    by step as the kernel runs it: st' = f (st >> 12) + d mod 2^32, then the
+    refills, lane 3 first, a byte at or past ``length`` reading as 0."""
+    sym, f, d = (t[0].numpy() for t in A.decode_tables_ref(_t(freq[None]), _t(cum[None])))
+    st = [int(s) & 0xFFFFFFFF for s in states]
+    out = np.empty(CHUNK, np.uint8)
+    ptr = 0
+    for t in range(CHUNK // 4):
+        for j in range(4):
+            slot = st[j] & 4095
+            out[4 * t + 3 - j] = sym[slot]
+            st[j] = (int(f[slot]) * (st[j] >> 12) + int(d[slot])) & 0xFFFFFFFF
+        for j in (3, 2, 1, 0):
+            if st[j] < (1 << 15):
+                b0 = int(pay[ptr]) if ptr < min(length, len(pay)) else 0
+                b1 = int(pay[ptr + 1]) if ptr + 1 < min(length, len(pay)) else 0
+                st[j] = ((st[j] << 16) | (b0 << 8) | b1) & 0xFFFFFFFF
+                ptr += 2
+    return out, ptr
+
+
+def test_decode_tables_ref_decodes_like_jax(decode_case):
+    """The kernel's slot-indexed tables decode the four chunks as decode_ref
+    and kanzi_tpu's XLA decoder do."""
+    chunks, pay, ne, st, freq, cum = decode_case
+    sym, f, d = A.decode_tables_ref(_t(freq), _t(cum))
+    assert sym.dtype == torch.uint8 and sym.shape == f.shape == d.shape == (4, SCALE)
+    want_out, want_used = jans.ans0_decode_chunks(
+        jnp.asarray(pay), jnp.asarray(st, jnp.int32), jnp.asarray(freq, jnp.int32),
+        jnp.asarray(cum, jnp.int32))
+    ref_out, ref_used = A.decode_ref(_t(pay), _t(np.full(4, pay.shape[1], np.int32)),
+                                     _t(st.astype(np.int64)), _t(freq), _t(cum))
+    for i in range(4):
+        out, used = _decode_via_tables(pay[i], pay.shape[1], st[i], freq[i], cum[i])
+        assert np.array_equal(out, chunks[i]) and used == ne[i] * 2
+        assert np.array_equal(out, ref_out.numpy()[i]) and used == int(ref_used[i])
+        assert np.array_equal(out, np.asarray(want_out)[i])
+        assert used == int(np.asarray(want_used)[i])
+
+
+def _corrupt_table(kind, freq, cum):
+    f, c = freq.astype(np.int64), cum.astype(np.int64)
+    if kind == "non_monotone":
+        c = c[::-1].copy()                       # bounds fall, then rise again
+    elif kind == "sum_over_4096":
+        f = f * 2
+        c = np.cumsum(f) - f
+    elif kind == "f_zero":
+        k = int(np.flatnonzero(f)[len(np.flatnonzero(f)) // 2])
+        f[k], c[k] = 0, 5000                     # a zero-frequency symbol holds slots
+    else:                                        # f_4096: one symbol, capped to 4095
+        f, c = np.zeros(256, np.int64), np.zeros(256, np.int64)
+        f[9] = 4096
+    return f, c
+
+
+@pytest.mark.parametrize("kind", ["non_monotone", "sum_over_4096", "f_zero", "f_4096"])
+def test_decode_tables_ref_on_corrupt_tables(decode_case, kind):
+    """Tables no valid stream holds decode through the slot-indexed arrays
+    exactly as decode_ref decodes them, consumed count included."""
+    _, pay, ne, st, freq, cum = decode_case
+    f, c = _corrupt_table(kind, freq[0], cum[0])
+    length = int(ne[0]) * 2
+    out, used = A.decode_ref(_t(pay[:1]), _t(np.array([length], np.int32)),
+                             _t(st[:1].astype(np.int64)), _t(f[None]), _t(c[None]))
+    got_out, got_used = _decode_via_tables(pay[0], length, st[0], f, c)
+    assert np.array_equal(got_out, out.numpy()[0])
+    assert got_used == int(used[0])
+    if kind == "f_4096":
+        sym, fs, _ = A.decode_tables_ref(_t(f[None]), _t(c[None]))
+        assert bool((sym == 9).all()) and int(fs.max()) == 4095
