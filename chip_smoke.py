@@ -9,13 +9,20 @@ Phases, one line each; any failure raises and the exit code is not 0:
   0  the card and its power limit, torch/CUDA versions, and whether the
      port's native host library (kanzi_tpu_torch/_build, from native/) loaded
   1  build the CUDA kernels from kanzi_tpu_torch/csrc (ans0.cu, ans1.cu,
-     huffman.cu, ksort.cu, lz_words.cu), one nvcc per source, in parallel
+     huffman.cu, ksort.cu, lz_words.cu, with the headers compact.cuh,
+     hist.cuh, rans.cuh, stage.cuh), one nvcc per source, in parallel
   2  each kernel against its plain PyTorch version on the card, bit for bit:
      the order-0 and Huffman kernels on 256 chunks cut from
-     mixed_corpus(16 MiB, seed=7) plus edge rows, timed at 256 x 16 KiB,
-     ans0_decode also on the CPU tests' corrupt cases (tables no valid stream
-     holds, cut lengths, states >= 2^31, an odd pitch) and with its cycles a
-     step (its ms x the maximum SM clock / 4,096);
+     mixed_corpus(16 MiB, seed=7) plus edge rows, timed at 256 x 16 KiB;
+     ans0_encode_scan also on the CPU tests' division-edge tables (f = 4095
+     against states near 2^31, f = 0 for absent symbols) at widths 4,096
+     and 4,076, with the reciprocal of csrc/rans.cuh against exact division
+     for every f < 4096 and every state x < 2^31 (0 mismatches or the run
+     fails); ans0_decode also on the CPU tests' corrupt cases (tables no
+     valid stream holds, cut lengths, states >= 2^31, an odd pitch);
+     huffman_decode also on the CPU tests' incomplete code, on random and
+     on all-ones payload bytes (every stream then ends at bit 53,248); the
+     three chains' cycles a step (ms x the maximum SM clock / 4,096);
      lz_words on 8 x 4 MiB rows of mixed_corpus(64 MiB, seed=12) (one flat
      dispatch of level 1), the last row's last 1 KiB repeating the KiB
      before it, so the tail rule shows; the order-1 kernels on 4 x 4 MiB
@@ -57,7 +64,9 @@ after it.  Then the card line, one JSON line of the kernels (each with its
 bound: the larger of its bytes over 3.35 TB/s and its integer operations
 over 67 T/s), and the result line.
 ``--quick`` stops after phase 2 and prints no result line, for the first
-call after a kernel changes.  ``--profile`` runs phases 0-1, then one
+call after a kernel changes; ``--phase2 ans0,huffman`` (any of ans0,
+huffman, lz_words, ans1, ksort) runs only those groups of phase 2, then
+stops the same way.  ``--profile`` runs phases 0-1, then one
 level-1 compress of 32 MiB with the LZX parse on the card under
 torch.profiler (device time by kernel family, the card's busy share) and
 once more with each engine stage timed on the host clock around a
@@ -230,11 +239,20 @@ def phase2_ans0(dev, rows) -> dict:
     rec["ans0_hist_norm"] = {"max_abs_err": max_abs_err([freq], [freq_r])}
 
     cum, tables = A.make_tables(freq)
+    check(bool((freq == 0).any()), "no phase-2 table has an f = 0 entry (an absent symbol)")
     enc = A.encode_scan(x, tables)
     enc_r = A.encode_scan_ref(x, tables)
     check(all(torch.equal(a, b) for a, b in zip(enc, enc_r)),
           "encode_scan differs from its plain version")
     rec["ans0_encode_scan"] = {"max_abs_err": max_abs_err(enc, enc_r)}
+    for label, args in scan_edge_cases(dev).items():
+        got, want = A.encode_scan(*args), A.encode_scan_ref(*args)
+        check(all(torch.equal(a, b) for a, b in zip(got, want)),
+              f"encode_scan differs from its plain version on {label}")
+        rec["ans0_encode_scan"]["max_abs_err"] = max(rec["ans0_encode_scan"]["max_abs_err"],
+                                                     max_abs_err(got, want))
+        rec["ans0_encode_scan"].setdefault("edge_cases", []).append(label)
+    rec["ans0_encode_scan"]["recip"] = recip_check(dev, A.LOG_RANGE)
 
     words, flags, states = enc
     cmp_ = A.compact(words, flags)
@@ -272,17 +290,52 @@ def phase2_ans0(dev, rows) -> dict:
     e = xm.numel()
     timed(rec, "ans0_hist_norm", lambda: A.hist_norm(xm), lambda: A.hist_norm_ref(xm),
           xm, e)
-    timed(rec, "ans0_encode_scan", lambda: A.encode_scan(xm, tm),
-          lambda: A.encode_scan_ref(xm, tm), (xm, tm), e)
+    r = timed(rec, "ans0_encode_scan", lambda: A.encode_scan(xm, tm),
+              lambda: A.encode_scan_ref(xm, tm), (xm, tm), e)
+    per_step(r, lambda: A.encode_scan(xm, tm))
+    r.update(scan0_chain(dev, tm))
+    r["floor_ms"] = (CHUNK // 4) * r["chain_cycles_per_step"] / (r["sm_clock_max_mhz"] * 1e3)
     flb = flm.bool()
     timed(rec, "ans0_compact", lambda: A.compact(wm, flm), lambda: A.compact_ref(wm, flm),
           (wm, flm), wm.numel(),
           library=lambda: (torch.masked_select(wm, flb), flb.sum(1)))
     r = timed(rec, "ans0_decode", lambda: A.decode(pm, lm, sm, fm, cm),
               lambda: A.decode_ref(pm, lm, sm, fm, cm), (pm, lm, sm, fm, cm), e)
+    per_step(r, lambda: A.decode(pm, lm, sm, fm, cm))
+    return rec
+
+
+def per_step(r: dict, fn) -> None:
+    """A launch's cycles a step at 256 x 16 KiB: its ms x the maximum SM
+    clock / the 4,096 steps of each chain (the chains run side by side),
+    and the same at the SM clock read while ``fn`` runs back to back."""
     r["sm_clock_max_mhz"] = sm_clock_mhz()
     r["cycles_per_step"] = r["ms"] * 1e-3 * r["sm_clock_max_mhz"] * 1e6 / (CHUNK // 4)
-    return rec
+    r["sm_clock_load_mhz"] = sm_clock_under_load(fn)
+    r["cycles_per_step_load_clock"] = r["ms"] * 1e-3 * r["sm_clock_load_mhz"] * 1e6 / (CHUNK // 4)
+
+
+def scan_edge_cases(dev) -> dict:
+    """The encode scan's cases of the CPU tests: the division-edge tables of
+    tests/test_torch_ans_ops.py (f = 4095 beside f = 1, 3, 37, 700 and
+    f = 0 for the 251 absent symbols, cum 1 under the 4095, which drives
+    the states divided by 4095 to within 2^21 of 2^31) on 30 rows of 4,096
+    bytes, and the same rows cut to 4,076 bytes (a width that is no
+    multiple of 64, so the kernel runs its top steps one by one).  Each:
+    the scan's two arguments."""
+    import numpy as np
+    import torch
+    n, c = 30, 4096
+    freq = np.zeros((n, 256), np.int64)
+    cum = np.zeros((n, 256), np.int64)
+    freq[:, :5] = [4095, 1, 3, 37, 700]
+    cum[:, 0] = 1
+    chunks = np.stack([np.random.default_rng(s).choice(
+        5, c, p=[0.5, 0.1, 0.1, 0.15, 0.15]).astype(np.uint8) for s in range(n)])
+    tables = torch.from_numpy((np.minimum(freq, 4095) | (cum << 12)).astype(np.int32)).to(dev)
+    x = torch.from_numpy(chunks).to(dev)
+    return {"division edge, f = 0 absent": (x, tables),
+            "width 4,076": (x[:, :4076].contiguous(), tables)}
 
 
 def corrupt_decode_cases(pay, lengths, states, freq, cum) -> dict:
@@ -377,6 +430,16 @@ def phase2_huffman(dev, rows) -> dict:
     check(torch.equal(dec[1][:n], declared), "huffman_decode used != 16 * n_words + nbits")
     check(int(dec[1][n, 2]) != int(declared[0, 2]), "the corrupt stream went unnoticed")
     rec["huffman_decode"] = {"max_abs_err": max_abs_err(dec, dec_r)}
+    for label, args in huffman_incomplete_cases(dev).items():
+        got, want = H.decode_chunks(*args), H.decode_chunks_ref(*args)
+        check(all(torch.equal(a, b) for a, b in zip(got, want)),
+              f"huffman_decode differs from its plain version on {label}")
+        rec["huffman_decode"]["max_abs_err"] = max(rec["huffman_decode"]["max_abs_err"],
+                                                   max_abs_err(got, want))
+        rec["huffman_decode"].setdefault("edge_cases", []).append(label)
+        if label == "all-ones payload":
+            check(bool((got[1] == 13 * H.STREAM).all()),
+                  "all-ones payload: a stream did not end at bit 53,248")
 
     m = 256
     xm, tm = x[:m], tbl[:m]
@@ -389,9 +452,32 @@ def phase2_huffman(dev, rows) -> dict:
           library=lambda: counts.zero_().scatter_add_(1, idx, ones))
     timed(rec, "huffman_encode", lambda: H.encode_streams(xm, tm),
           lambda: H.encode_streams_ref(xm, tm), (xm, tm), e)
-    timed(rec, "huffman_decode", lambda: H.decode_chunks(pm, bm, am, qm),
-          lambda: H.decode_chunks_ref(pm, bm, am, qm), (pm, bm, am, qm), e)
+    r = timed(rec, "huffman_decode", lambda: H.decode_chunks(pm, bm, am, qm),
+              lambda: H.decode_chunks_ref(pm, bm, am, qm), (pm, bm, am, qm), e)
+    per_step(r, lambda: H.decode_chunks(pm, bm, am, qm))
     return rec
+
+
+def huffman_incomplete_cases(dev) -> dict:
+    """The incomplete code of tests/test_torch_huffman_ops.py (one 12-bit
+    code, symbol 200; every window but the first is past the last code, so
+    decodes to 0 and advances 13 bits) on random payload bytes, whose
+    streams end near their segment's end, and on all-ones bytes, whose
+    windows all advance 13 bits, so that every stream ends exactly at the
+    segment's end, bit 53,248.  Each: the decode's four arguments."""
+    import numpy as np
+    import torch
+
+    from kanzi_tpu_torch.ops import huffman_block as HB
+    from kanzi_tpu_torch.ops import huffman_cuda as H
+    sizes = np.full(256, 8, np.int64)
+    sizes[200] = 12
+    tabs = [torch.from_numpy(t).to(dev)
+            for t in HB.build_decode_tables([sizes], [np.array([200])])]
+    rng = np.random.default_rng(8)
+    rand = torch.from_numpy(rng.integers(0, 256, (1, H.PAY_WIDTH), dtype=np.uint8)).to(dev)
+    ones = torch.full((1, H.PAY_WIDTH), 255, dtype=torch.uint8, device=dev)
+    return {"incomplete code": (rand, *tabs), "all-ones payload": (ones, *tabs)}
 
 
 def phase2_lz_words(dev, data: bytes) -> dict:
@@ -418,33 +504,62 @@ def phase2_lz_words(dev, data: bytes) -> dict:
     return rec
 
 
-def sm_clock_mhz() -> float:
-    res = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+def sm_clock_mhz(query: str = "clocks.max.sm") -> float:
+    res = subprocess.run(["nvidia-smi", f"--query-gpu={query}",
                           "--format=csv,noheader,nounits"],
                          capture_output=True, text=True, check=True)
     return float(res.stdout.strip().splitlines()[0])
 
 
-def scan_chain(dev, ent, steps: int) -> dict:
-    """The floor of ans1_scan's chain: csrc/ans1.cu scan_chain_kernel runs
-    ``steps`` of the scan's steps on one thread over the 16 entries ``ent``
-    (their step operands in registers, no load or store in its loop) and
-    counts the SM cycles.  Its final state must equal ans1_scan's on a chunk
-    whose four quarters show it those entries repeated: byte p % 16 + 1 at
-    quarter position p, and a table holding ent[15 - j] at each of the
-    byte pairs (context, symbol) of p % 16 == j.  Not a codec kernel: no
-    launch count."""
+def sm_clock_under_load(fn, seconds: float = 0.5) -> float:
+    """The SM clock (MHz) that nvidia-smi reads while the card runs ``fn``
+    back to back: about ``seconds`` of launches are queued first, then the
+    clock is read, then the queue drains."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    n = max(1, int(seconds / max(time.perf_counter() - t, 1e-5)))
+    for _ in range(n):
+        fn()
+    mhz = sm_clock_mhz("clocks.sm")
+    torch.cuda.synchronize()
+    return mhz
+
+
+def chain_floor(dev, ent, steps: int, lr: int):
+    """The floor of a reciprocal rANS chain (csrc/rans.cuh ans_step):
+    csrc/ans1.cu scan_chain_kernel runs ``steps`` steps on one thread over
+    the 16 packed entries ``ent`` (f | cm << lr; step t takes ent[t % 16]),
+    their operands in registers, no load or store in its loop, and counts
+    the SM cycles by clock64.  Returns (cycles a step, its final state).
+    Not a codec kernel: no launch count."""
     import torch
 
-    from kanzi_tpu_torch.ops import ans1_cuda as A1
     from kanzi_tpu_torch.utils import cuda_build
 
     out = torch.zeros(4, dtype=torch.int32, device=dev)
     cyc = torch.zeros(2, dtype=torch.int64, device=dev)
     err = cuda_build.load().kz_ans1_scan_chain(
-        ent.data_ptr(), out.data_ptr(), cyc.data_ptr(), steps, A1.LOG_RANGE1,
+        ent.data_ptr(), out.data_ptr(), cyc.data_ptr(), steps, lr,
         torch.cuda.current_stream(dev).cuda_stream)
     check(err == 0, f"scan_chain: kernel launch failed, cudaError {err}")
+    return int(cyc[0]) / steps, out[0]
+
+
+def scan_chain(dev, ent, steps: int) -> dict:
+    """The floor of ans1_scan's chain, from chain_floor.  Its final state
+    must equal ans1_scan's on a chunk whose four quarters show it those
+    entries repeated: byte p % 16 + 1 at quarter position p, and a table
+    holding ent[15 - j] at each of the byte pairs (context, symbol) of
+    p % 16 == j."""
+    import torch
+
+    from kanzi_tpu_torch.ops import ans1_cuda as A1
+
+    cyc, out = chain_floor(dev, ent, steps, A1.LOG_RANGE1)
     sym = torch.arange(steps, device=dev) % 16 + 1
     chunk = sym.repeat(4).to(torch.uint8).view(1, 4 * steps)
     packed = torch.zeros((1, 65536), dtype=torch.int32, device=dev)
@@ -452,22 +567,44 @@ def scan_chain(dev, ent, steps: int) -> dict:
     packed[0, ((j - 1) % 16 + 1) * 256 + j + 1] = ent.flip(0)
     packed[0, 1] = ent[15]                    # quarter start: context 0
     _, st = A1.scan_chunks(chunk, packed)
-    check(bool((st == out[0]).all()), "scan_chain's state differs from ans1_scan's")
-    return {"chain_cycles_per_step": int(cyc[0]) / steps}
+    check(bool((st == out).all()), "scan_chain's state differs from ans1_scan's")
+    return {"chain_cycles_per_step": cyc}
 
 
-def recip_check(dev) -> dict:
-    """csrc/ans1.cu recip_check_kernel: the reciprocal against exact division
-    for every f in [1, 2047] and every state x < 2^31 (a superset of the
-    renormalised states x < f << 20 that the divide of the TPU's scan saw).
+def scan0_chain(dev, tables) -> dict:
+    """The floor of ans0_encode_scan's chain, from chain_floor at logRange
+    12 over 16 entries of a phase-2 table (symbols present in its chunk).
+    Its final state must equal the kernel's on a 16 KiB chunk whose word k
+    holds byte (4095 - k) % 16 four times, with a table holding the 16
+    entries at bytes 0-15: each lane then codes entry t % 16 at step t."""
+    import torch
+
+    from kanzi_tpu_torch.ops import ans_cuda as A
+
+    steps = CHUNK // 4
+    ent = tables[0][(tables[0] & (A.SCALE - 1)) > 0][:16].contiguous()
+    check(ent.numel() == 16, "the chain floor needs 16 symbols present in a phase-2 chunk")
+    cyc, out = chain_floor(dev, ent, steps, A.LOG_RANGE)
+    k = torch.arange(steps, device=dev)
+    chunk = ((steps - 1 - k) % 16).repeat_interleave(4).to(torch.uint8).view(1, CHUNK)
+    tbl = torch.zeros((1, 256), dtype=torch.int32, device=dev)
+    tbl[0, :16] = ent
+    _, _, st = A.encode_scan(chunk, tbl)
+    check(bool((st == out).all()), "scan_chain's state differs from ans0_encode_scan's")
+    return {"chain_cycles_per_step": cyc}
+
+
+def recip_check(dev, lr: int) -> dict:
+    """csrc/ans1.cu recip_check_kernel: the reciprocal of csrc/rans.cuh
+    against exact division for every f in [1, 2^lr - 1] and every state
+    x < 2^31 (a superset of the renormalised states x < f << (31 - lr) that
+    a scan divides), lr 11 for the order-1 scan and 12 for the order-0 one.
     Fails unless it counts 0 mismatches over all the pairs.  Not a codec
     kernel: no launch count."""
     import torch
 
-    from kanzi_tpu_torch.ops import ans1_cuda as A1
     from kanzi_tpu_torch.utils import cuda_build
 
-    lr = A1.LOG_RANGE1
     counts = torch.zeros(2, dtype=torch.int64, device=dev)
     torch.cuda.synchronize()
     t = time.perf_counter()
@@ -477,8 +614,8 @@ def recip_check(dev) -> dict:
     bad, pairs = (int(v) for v in counts.cpu())
     seconds = time.perf_counter() - t
     want = ((1 << lr) - 1) << 31
-    check(pairs == want, f"recip_check compared {pairs} pairs, not {want}")
-    check(bad == 0, f"recip_check: {bad} mismatches of the reciprocal against x / f")
+    check(pairs == want, f"recip_check at lr {lr} compared {pairs} pairs, not {want}")
+    check(bad == 0, f"recip_check at lr {lr}: {bad} mismatches of the reciprocal against x / f")
     return {"recip_pairs": pairs, "recip_mismatches": bad, "recip_check_s": seconds}
 
 
@@ -519,7 +656,7 @@ def phase2_ans1(dev, data: bytes) -> dict:
     check(all(torch.equal(u, v) for u, v in zip(sc, sc_r)),
           "ans1_scan differs from its plain version")
     rec["ans1_scan"] = {"max_abs_err": max_abs_err(sc, sc_r), "plain_ms": a.elapsed_time(b),
-                        **recip_check(dev)}
+                        **recip_check(dev, A1.LOG_RANGE1)}
     del sc_r
 
     e = sc[0].view(n * (BLOCK // CHUNK), 128, 128)
@@ -644,11 +781,19 @@ def phase2_ksort(dev) -> dict:
     return rec
 
 
-def phase2_kernels(dev, data: bytes) -> dict:
+PHASE2_GROUPS = ("ans0", "huffman", "lz_words", "ans1", "ksort")
+
+
+def phase2_kernels(dev, data: bytes, groups=PHASE2_GROUPS) -> dict:
     from kanzi_tpu_torch.utils.corpus import mixed_corpus
     rows = mixed_corpus(16 << 20, seed=7).reshape(-1, CHUNK)[::4]      # 256
-    return {**phase2_ans0(dev, rows), **phase2_huffman(dev, rows),
-            **phase2_lz_words(dev, data), **phase2_ans1(dev, data), **phase2_ksort(dev)}
+    run = {"ans0": lambda: phase2_ans0(dev, rows), "huffman": lambda: phase2_huffman(dev, rows),
+           "lz_words": lambda: phase2_lz_words(dev, data), "ans1": lambda: phase2_ans1(dev, data),
+           "ksort": lambda: phase2_ksort(dev)}
+    out = {}
+    for g in groups:
+        out.update(run[g]())
+    return out
 
 
 def _compress(cls, data: bytes, ctx: dict, **kw) -> bytes:
@@ -877,7 +1022,13 @@ def main() -> int:
     ap.add_argument("--quick", action="store_true", help="stop after phase 2")
     ap.add_argument("--profile", action="store_true",
                     help="profile one level-1 compress after phase 1, then stop")
+    ap.add_argument("--phase2", metavar="GROUPS",
+                    help="run only these comma-separated phase-2 groups (of "
+                         f"{', '.join(PHASE2_GROUPS)}), then stop")
     args = ap.parse_args()
+    groups = PHASE2_GROUPS if args.phase2 is None else tuple(args.phase2.split(","))
+    if not set(groups) <= set(PHASE2_GROUPS):
+        ap.error(f"--phase2: groups are {', '.join(PHASE2_GROUPS)}")
 
     import torch
     if not torch.cuda.is_available():
@@ -911,33 +1062,46 @@ def main() -> int:
         print(json.dumps({"level1_profile": profile_level1(data[:32 << 20], dev)}))
         return 0
     t = time.perf_counter()
-    kern = phase2_kernels(dev, data)
+    kern = phase2_kernels(dev, data, groups)
     for name, r in kern.items():
         lib = "" if r["library_ms"] is None else f", library call {r['library_ms']:.4f} ms"
         once = " (one run)" if name == "ans1_scan" else ""
         print(f"phase 2: {name}: bit-equal to its plain version; kernel {r['ms']:.4f} ms, "
               f"plain {r['plain_ms']:.4f} ms{once}{lib}, bound {r['bound_ms']:.4f} ms "
               f"({r['bound_by']}) at {TIMED_AT.get(name, '256 x 16 KiB')}")
-    r = kern["ans1_scan"]
-    print(f"phase 2: ans1_scan: one chunk {r['ms_1_chunk']:.4f} ms, 32 chunks in one launch "
-          f"{r['ms_32_chunks']:.4f} ms; measured {r['cycles_per_step']:.1f} cycles a step at "
-          f"the {r['sm_clock_max_mhz']:.0f} MHz maximum SM clock; the chain alone "
-          f"(scan_chain, clock64) {r['chain_cycles_per_step']:.1f} cycles a step, a floor of "
-          f"{r['steps']} x {r['chain_cycles_per_step']:.1f} cycles = {r['floor_ms']:.4f} ms, "
-          f"one chunk at {r['ms_1_chunk'] / r['floor_ms']:.3f} x the floor; reciprocal "
-          f"against x / f: {r['recip_mismatches']} mismatches in {r['recip_pairs']} pairs "
-          f"({r['recip_check_s']:.2f} s)")
-    r = kern["ans0_decode"]
-    print(f"phase 2: ans0_decode: {r['cycles_per_step']:.1f} cycles a step at the "
-          f"{r['sm_clock_max_mhz']:.0f} MHz maximum SM clock; bit-equal to its plain version "
-          f"on {', '.join(r['corrupt_cases'])}")
-    for shape, a in kern["ksort"]["at"].items():
+    if "ans1_scan" in kern:
+        r = kern["ans1_scan"]
+        print(f"phase 2: ans1_scan: one chunk {r['ms_1_chunk']:.4f} ms, 32 chunks in one launch "
+              f"{r['ms_32_chunks']:.4f} ms; measured {r['cycles_per_step']:.1f} cycles a step at "
+              f"the {r['sm_clock_max_mhz']:.0f} MHz maximum SM clock; the chain alone "
+              f"(scan_chain, clock64) {r['chain_cycles_per_step']:.1f} cycles a step, a floor of "
+              f"{r['steps']} x {r['chain_cycles_per_step']:.1f} cycles = {r['floor_ms']:.4f} ms, "
+              f"one chunk at {r['ms_1_chunk'] / r['floor_ms']:.3f} x the floor; reciprocal "
+              f"at lr 11 against x / f: {r['recip_mismatches']} mismatches in "
+              f"{r['recip_pairs']} pairs ({r['recip_check_s']:.2f} s)")
+    for name, cases in (("ans0_encode_scan", "edge_cases"), ("ans0_decode", "corrupt_cases"),
+                        ("huffman_decode", "edge_cases")):
+        if name in kern:
+            r = kern[name]
+            print(f"phase 2: {name}: {r['cycles_per_step']:.1f} cycles a step at the "
+                  f"{r['sm_clock_max_mhz']:.0f} MHz maximum SM clock, "
+                  f"{r['cycles_per_step_load_clock']:.1f} at the {r['sm_clock_load_mhz']:.0f} "
+                  f"MHz read under its load; bit-equal to its plain version on "
+                  f"{', '.join(r[cases])}")
+    if "ans0_encode_scan" in kern:
+        r = kern["ans0_encode_scan"]
+        print(f"phase 2: ans0_encode_scan: the chain alone (scan_chain, clock64) "
+              f"{r['chain_cycles_per_step']:.1f} cycles a step, a floor of {r['floor_ms']:.4f} "
+              f"ms, the kernel at {r['ms'] / r['floor_ms']:.3f} x the floor; reciprocal at lr 12 "
+              f"against x / f: {r['recip']['recip_mismatches']} mismatches in "
+              f"{r['recip']['recip_pairs']} pairs ({r['recip']['recip_check_s']:.2f} s)")
+    for shape, a in kern.get("ksort", {}).get("at", {}).items():
         print(f"phase 2: ksort at {shape}: kernel {a['ms']:.4f} ms, plain {a['plain_ms']:.4f} "
               f"ms, library call {a['library_ms']:.4f} ms, bound {a['bound_ms']:.4f} ms "
               f"({a['bound_by']}); {a['passes']} passes, alone: "
               + ", ".join(f"{k} {v:.4f} ms" for k, v in a["pass_ms"].items()))
     print(f"phase 2: done in {time.perf_counter() - t:.1f} s")
-    if args.quick:
+    if args.quick or args.phase2 is not None:
         return 0
 
     launches = dict.fromkeys(REPLACES, 0)
@@ -999,8 +1163,9 @@ def main() -> int:
                                                   "bound_by", "library_ms")},
              "timed_at": TIMED_AT.get(name, "256 x 16 KiB")}
         for key in ("ms_1_chunk", "ms_32_chunks", "cycles_per_step", "chain_cycles_per_step",
-                    "floor_ms", "recip_pairs", "recip_mismatches", "corrupt_cases", "passes",
-                    "pass_ms", "at"):
+                    "floor_ms", "recip_pairs", "recip_mismatches", "recip", "sm_clock_load_mhz",
+                    "cycles_per_step_load_clock", "corrupt_cases",
+                    "edge_cases", "passes", "pass_ms", "at"):
             if key in kern[name]:
                 k[key] = kern[name][key]
         if also:

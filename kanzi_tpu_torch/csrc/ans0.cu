@@ -14,6 +14,8 @@
 
 #include "compact.cuh"
 #include "hist.cuh"
+#include "rans.cuh"
+#include "stage.cuh"
 
 namespace {
 
@@ -116,52 +118,136 @@ hist_norm_kernel(const uint8_t* __restrict__ chunks, int32_t* __restrict__ freq)
 //
 // Replaces kanzi_tpu/ops/ans_pallas.py _scan_sub_fused_kernel (:156).  The
 // four state chains of a chunk are independent (state u encodes the bytes b
-// with b % 4 == 3 - u, walking backward), so one thread runs one chain: 4
-// threads per chunk, 32 chunks per 128-thread CTA, the chunk's packed
-// f | cum << 12 table in shared memory (32 KiB per CTA).  Bound on this card:
-// the serial dependence of each chain (a divide per byte), not bytes: a chunk
-// gives only four threads.  Design: exact uint32 `/` and `%`, no f32 quotient
-// (the TPU's f32 trick existed only because it has no integer divide).  Each
-// emission word and flag is stored at its byte's own position, which is wire
-// order, so kernel 3 needs no relayout.
+// with b % 4 == 3 - u, walking backward).  Bound on this card: one chain's
+// c / 4 steps, each a few dependent integer operations (the chain alone,
+// ans1.cu scan_chain_kernel, measures ~34 cycles a step), with the loads
+// and stores beside it issued by the same warp; the chunks of a launch run
+// side by side, so only a shorter step (and a short start) makes a launch
+// faster.  What the design does about it:
+//   - A warp a chunk (a CTA of 32 threads, its shared memory static).  The
+//     32 lanes stage the row (up to 16 KiB; a wider row is read where it
+//     lies) by cp.async while they build the chunk's 256 step operands
+//     (rans.cuh step_operands at logRange 12, 2 cm packed above l), one
+//     exact 64-bit divide each; then lanes 0-3 run the four chains.  A
+//     symbol with f = 0 is absent from its chunk (in every table the
+//     encoder makes), so its entry gets no divide, and is never read.
+//   - The step of rans.cuh on the doubled state st2 = 2 st: its test
+//     st2 >= f << 20 is ANS0's renormalisation test st >= f << 19, and the
+//     divide is umulhi, a shift and a multiply-add, exact for every state
+//     below 2^31, which every table with f + cum <= 4096 keeps (a
+//     normalised one does).  The state is written back as st2 >> 1.
+//   - Operands off the chain: each step's byte and its 16-byte operand
+//     entry are read from shared memory two groups of 16 steps ahead, into
+//     two register sets taken in turn, so no step waits on a load.
+//   - Each emission word and flag is stored at its byte's own position,
+//     which is wire order, so kernel 3 needs no relayout; the four lanes'
+//     stores of a step are neighbours.
+// Measured beside it (PERF.md section 6): two chunks a CTA reading the
+// bytes as words, and operands one group ahead, no faster; two states a
+// lane, slower.
 
-constexpr int kScanChunksPerCta = 32;
-constexpr int kScanThreads = 4 * kScanChunksPerCta;
+constexpr int kScanGroup = 16;               // steps a group
+constexpr int kScanStaged = kChunk;          // rows up to this width are staged
 
-__global__ void __launch_bounds__(kScanThreads)
+// a chunk's shared memory (20.1 KiB)
+struct ScanSmem {
+  uint4 ops[256];                            // step operands by symbol
+  uint8_t ahead[128];                        // read, unused, by the last groups' lookahead
+  alignas(16) uint32_t row[kScanStaged / 4];
+};
+
+// The chain of a lane: its steps t, their bytes at rb[-4 t] (in shared
+// memory if kStaged, else in device memory), its words and flags at
+// wv[-4 t], wf[-4 t].  Returns the final state.
+template <bool kStaged>
+__device__ __forceinline__ uint32_t scan_chain(const uint4* ops, const uint8_t* rb,
+                                               int16_t* wv, uint8_t* wf, int steps) {
+  uint32_t st2 = kAnsTop << 1;
+  auto step = [&](int t, uint4 s) {
+    bool em;
+    const uint32_t val = st2 >> 1;
+    st2 = ans_step_em(st2, s, &em);
+    wv[-4 * t] = static_cast<int16_t>(em ? val : 0u);
+    wf[-4 * t] = em ? 1 : 0;
+  };
+  const int head = steps % kScanGroup;
+  for (int t = 0; t < head; ++t) step(t, ops[rb[-4 * t]]);
+  rb -= 4 * head;
+  wv -= 4 * head;
+  wf -= 4 * head;
+  const int groups = steps / kScanGroup;
+  // the byte of step i of the group g groups on; past the row's start,
+  // any byte (staged: the struct's `ahead` bytes)
+  auto byte = [&](int g, int i) -> uint32_t {
+    if (kStaged) return rb[-4 * (kScanGroup * g + i)];
+    return g < groups ? __ldg(rb - 4 * (kScanGroup * g + i)) : 0u;
+  };
+  uint4 sa[kScanGroup], sb[kScanGroup];
+#pragma unroll
+  for (int i = 0; i < kScanGroup; ++i) {
+    sa[i] = ops[byte(0, i)];
+    sb[i] = ops[byte(1, i)];
+  }
+#pragma unroll 1
+  for (int g = 0; g < groups; g += 2) {
+#pragma unroll
+    for (int i = 0; i < kScanGroup; ++i) {
+      step(i, sa[i]);
+      sa[i] = ops[byte(2, i)];
+    }
+    rb -= 4 * kScanGroup;
+    wv -= 4 * kScanGroup;
+    wf -= 4 * kScanGroup;
+    if (g + 1 == groups) break;
+#pragma unroll
+    for (int i = 0; i < kScanGroup; ++i) {
+      step(i, sb[i]);
+      sb[i] = ops[byte(2, i)];
+    }
+    rb -= 4 * kScanGroup;
+    wv -= 4 * kScanGroup;
+    wf -= 4 * kScanGroup;
+  }
+  return st2 >> 1;
+}
+
+__global__ void __launch_bounds__(32)
 encode_scan_kernel(const uint8_t* __restrict__ chunks, const int32_t* __restrict__ tables,
                    int16_t* __restrict__ words, uint8_t* __restrict__ flags,
-                   int32_t* __restrict__ states, int n, int c) {
-  __shared__ uint32_t tbl[kScanChunksPerCta][256];
-  const size_t base = static_cast<size_t>(blockIdx.x) * kScanChunksPerCta;
-  for (int i = threadIdx.x; i < kScanChunksPerCta * 256; i += kScanThreads) {
-    const size_t r = base + (i >> 8);
-    tbl[i >> 8][i & 255] = r < static_cast<size_t>(n) ? static_cast<uint32_t>(tables[r * 256 + (i & 255)]) : 1u;
+                   int32_t* __restrict__ states, int c) {
+  __shared__ ScanSmem sh;
+  const int lane = threadIdx.x;
+  const size_t row = blockIdx.x;
+  const uint8_t* rp = chunks + row * c;
+  const bool staged = c <= kScanStaged;
+  if (staged && (c & 15) == 0) {
+    for (int q = lane; q < c / 16; q += 32) {
+      stage16(reinterpret_cast<uint8_t*>(sh.row) + 16 * q, rp, 16u * q, static_cast<uint32_t>(c));
+    }
+  } else if (staged) {
+    for (int q = lane; q < c / 4; q += 32) sh.row[q] = reinterpret_cast<const uint32_t*>(rp)[q];
   }
-  __syncthreads();
-  const int local = threadIdx.x >> 2;
-  const int u = threadIdx.x & 3;
-  const size_t row = base + local;
-  if (row >= static_cast<size_t>(n)) return;
-  const uint8_t* src = chunks + row * c;
-  int16_t* wv = words + row * c;
-  uint8_t* wf = flags + row * c;
-  const uint32_t* t = tbl[local];
-  uint32_t st = kAnsTop;
-  for (int s = u; s < c; s += 4) {
-    const int b = c - 1 - s;
-    const uint32_t lk = t[src[b]];
+  stage_commit();
+  for (int k = lane; k < 256; k += 32) {
+    const uint32_t lk = static_cast<uint32_t>(tables[row * 256 + k]);
     const uint32_t f = lk & (kScale - 1);
-    const uint32_t cm = lk >> kLogRange;
-    const bool em = (st >> (31 - kLogRange)) >= f;  // st >= f << 19
-    const uint32_t val = st & 0xFFFFu;
-    if (em) st >>= 16;
-    const uint32_t q = st / f;
-    st = (q << kLogRange) + (st - q * f) + cm;
-    wv[b] = em ? static_cast<int16_t>(static_cast<uint16_t>(val)) : int16_t(0);
-    wf[b] = em ? 1 : 0;
+    uint4 s = f ? step_operands(f, kLogRange) : make_uint4(0u, 0u, 0u, 0u);
+    s.z |= (lk >> kLogRange) << 6;
+    sh.ops[k] = s;
   }
-  states[row * 4 + u] = static_cast<int32_t>(st);
+  stage_wait<0>();
+  __syncwarp();
+  if (lane >= 4) return;
+  // lane u's step t codes byte c - 1 - 4 t - u, and stores its word and
+  // flag at that position
+  const int u = lane;
+  const int at = c - 1 - u;
+  int16_t* wv = words + row * c + at;
+  uint8_t* wf = flags + row * c + at;
+  const uint8_t* srow = reinterpret_cast<const uint8_t*>(sh.row);
+  states[row * 4 + u] = static_cast<int32_t>(
+      staged ? scan_chain<true>(sh.ops, srow + at, wv, wf, c >> 2)
+             : scan_chain<false>(sh.ops, rp + at, wv, wf, c >> 2));
 }
 
 // ---------------------------------------------------------------------------
@@ -251,26 +337,6 @@ struct DecodeSmem {
   alignas(16) uint8_t ring[kRingBytes];
   alignas(16) uint8_t obuf[128];             // decoded bytes, two blocks of 4 x 16
 };
-
-// cp.async of the 16 bytes at pos of a row into shared memory, zero-filled
-// past len (no byte read at or past it)
-__device__ __forceinline__ void stage16(uint8_t* smem, const uint8_t* row, uint32_t pos,
-                                        uint32_t len) {
-  const uint32_t n = pos < len ? min(len - pos, 16u) : 0u;
-  const uint8_t* src = row + (n ? pos : 0u);
-  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src), "r"(n)
-               : "memory");
-}
-
-__device__ __forceinline__ void stage_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void stage_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
 
 __global__ void __launch_bounds__(32 * kDecWarps)
 decode_kernel(const uint8_t* __restrict__ payload, long long pitch,
@@ -415,11 +481,10 @@ int kz_ans0_hist_norm(const void* chunks, void* freq, int n, void* stream) {
 int kz_ans0_encode_scan(const void* chunks, const void* tables, void* words, void* flags,
                         void* states, int n, int c, void* stream) {
   if (n > 0) {
-    const int grid = (n + kScanChunksPerCta - 1) / kScanChunksPerCta;
-    encode_scan_kernel<<<grid, kScanThreads, 0, as_stream(stream)>>>(
+    encode_scan_kernel<<<n, 32, 0, as_stream(stream)>>>(
         static_cast<const uint8_t*>(chunks), static_cast<const int32_t*>(tables),
         static_cast<int16_t*>(words), static_cast<uint8_t*>(flags),
-        static_cast<int32_t*>(states), n, c);
+        static_cast<int32_t*>(states), c);
   }
   return static_cast<int>(cudaGetLastError());
 }

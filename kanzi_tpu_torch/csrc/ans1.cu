@@ -16,61 +16,11 @@
 #include <cuda_runtime.h>
 
 #include "compact.cuh"
+#include "rans.cuh"
 
 namespace {
 
 constexpr uint32_t kAnsTop = 1u << 15;
-
-// ---------------------------------------------------------------------------
-// the step, with a reciprocal in place of the divide
-// ---------------------------------------------------------------------------
-//
-// For 1 <= f < 2^31, l = ceil(log2 f) and m = ceil(2^(31 + l) / f), which
-// lies in [2^31, 2^32): umulhi(2x, m) >> l == x / f for every x < 2^31.
-// (m = (2^(31+l) + d) / f with 0 <= d < f, so 2x m / 2^(32+l) exceeds x / f
-// by less than x / 2^(31+l) < 1 / f, too little to reach the next integer.)
-// This is the Granlund-Montgomery form of F. Giesen's rans_byte.h with the
-// dividend doubled instead of the shift cut by one, so f = 1 (m = 2^31,
-// l = 0) needs no case of its own.  ans1_cuda.py recip_table is its plain
-// version, and recip_check_kernel below tests it for every f < 2^11 and
-// every x < 2^31.
-//
-// The chain carries the doubled state st2 = 2 st (st < 2^31), the
-// reciprocal's dividend as it is.  Then h = umulhi(st2, m) gives st / f as
-// h >> l and, when the step emits and the state to divide is st >> 16,
-// (st >> 16) / f as h >> (l + 16) (floor(floor(a / b) / c) ==
-// floor(a / (b c))): the renormalisation picks a shift, off the chain,
-// instead of feeding the divide.  With x the renormalised state and
-// q = x / f, (q << lr) + (x - q f) + cm == x + cm + q (2^lr - f), doubled.
-// On the chain: umulhi, shift, multiply-add.
-
-struct Recip {
-  uint32_t m, l;
-};
-
-__device__ inline Recip recip(uint32_t f) {
-  const uint32_t l = 32 - __clz(static_cast<int>(f - 1));   // ceil(log2 f); __clz(0) = 32
-  return {static_cast<uint32_t>(((1ull << (31 + l)) + f - 1) / f), l};
-}
-
-// The operands of a symbol with frequency f, less its cm: {2 f << (31 - lr)
-// (the doubled renormalisation threshold), m, l, 2 (2^lr - f)}.
-__device__ inline uint4 step_operands(uint32_t f, int lr) {
-  const Recip r = recip(f);
-  return make_uint4(f << (32 - lr), r.m, r.l, ((1u << lr) - f) << 1);
-}
-
-// One step of a lane's chain on the doubled state st2, the operands of its
-// symbol in s with 2 cm packed above l (s.z = l | 2 cm << 5; the funnel
-// shift reads the low 5 bits).  The emitted word (flag << 16 | val, 0 where
-// nothing was emitted) goes to *word.
-__device__ __forceinline__ uint32_t ans_step(uint32_t st2, uint4 s, uint32_t* word) {
-  const bool em = st2 >= s.x;
-  *word = em ? (0x10000u | ((st2 >> 1) & 0xFFFFu)) : 0u;
-  const uint32_t q = __funnelshift_r(__umulhi(st2, s.y), 0u, em ? s.z + 16 : s.z);
-  const uint32_t x2 = em ? (st2 >> 17) << 1 : st2;
-  return q * s.w + (x2 + (s.z >> 5));   // the sum off the chain, then one multiply-add
-}
 
 // ---------------------------------------------------------------------------
 // kernel 1: the order-1 lookup and the state scan, fused
@@ -221,12 +171,13 @@ scan_kernel(const uint8_t* __restrict__ chunks, const int32_t* __restrict__ pack
 }
 
 // The chain alone, to measure its floor: one thread runs `steps` (a multiple
-// of kGroup) of scan_kernel's steps over the kGroup entries of lk, their
+// of kGroup) of rans.cuh's steps at logRange lr (11: scan_kernel's; 12:
+// ans0.cu encode_scan_kernel's) over the kGroup entries of lk, their
 // operands computed before the loop and held in registers, with no load or
 // store inside the timed loop, and counts the SM cycles with clock64.  The
 // empty asm makes each step's operands opaque, so the compiler cannot carry
 // work on them across steps.  Not on any codec path; chip_smoke.py calls it
-// beside ans1_scan.
+// beside ans1_scan and ans0_encode_scan.
 __global__ void scan_chain_kernel(const int32_t* __restrict__ lk, int32_t* __restrict__ out,
                                   long long* __restrict__ cycles, int steps, int lr) {
   uint4 s[kGroup];
@@ -253,12 +204,13 @@ __global__ void scan_chain_kernel(const int32_t* __restrict__ lk, int32_t* __res
   cycles[0] = c1 - c0;
 }
 
-// The reciprocal against exact division, exhaustively: for every f in
-// [1, 2^lr) and every x < 2^31 (every state), umulhi(2x, m) >> l must equal
+// The reciprocal of rans.cuh against exact division, exhaustively: for every
+// f in [1, 2^lr) and every x < 2^31 (every state), umulhi(2x, m) >> l must equal
 // x / f.  x / f comes from one exact division at the start of each thread's
 // run of kCheckRun values, then counts up: q and r step as x does.
 // counts[0] += the mismatches, counts[1] += the pairs compared.  Not on any
-// codec path; chip_smoke.py runs it for lr = 11 (~4.4e12 pairs).
+// codec path; chip_smoke.py runs it for lr = 11 (~4.4e12 pairs), this
+// file's range, and lr = 12 (~8.8e12), ans0.cu's.
 constexpr int kCheckThreads = 256;
 constexpr int kCheckRun = 1 << 16;
 

@@ -14,6 +14,7 @@
 #include <cuda_runtime.h>
 
 #include "hist.cuh"
+#include "stage.cuh"
 
 namespace {
 
@@ -22,7 +23,6 @@ constexpr int kStream = kChunk / 4;          // symbols per quarter-stream
 constexpr int kMaxLen = 12;                  // MAX_SYMBOL_SIZE
 constexpr int kWin = 1 << kMaxLen;           // 4096 12-bit windows
 constexpr int kSegBytes = 26 * 256;          // a stream's payload segment (6,656 B)
-constexpr int kSegWords = kSegBytes / 4;
 
 // ---------------------------------------------------------------------------
 // kernel 1: per-chunk byte histogram
@@ -136,99 +136,138 @@ huffman_encode_kernel(const uint8_t* __restrict__ chunks, const int32_t* __restr
 //
 // Replaces kanzi_tpu/ops/huffman_decode_pallas.py _decode_kernel (:50) and the
 // rank -> symbol ans_pallas.py _lookup_kernel (:47) that follows it
-// (huffman_decode_pallas.py:240).  A 32-thread CTA decodes 8 chunks, one
-// thread per (chunk, stream).  The CTA first builds, per chunk, the
-// 4,096-entry len << 8 | symbol table of every 12-bit window in shared memory
-// (8 KiB per chunk, 64 KiB per CTA of the 227 KiB) from the canonical
-// arithmetic of the TPU kernel:
-//   L   = 1 + #{l in 1..12 : boundary[l] <= v}
-//   sym = perm[(adj[L] - 8192 + (v >> (12 - L))) & 255] & 255   for L <= 12
-// which is the host decoder's own table shape (entropy/huffman.py:432-445),
-// so symbols come out directly and no rank pass is needed.  A window past the
-// last code (L = 13, only on an incomplete code) decodes to symbol 0 and
-// advances 13 bits, in the plain version too; the glue then sees the bit
-// count mismatch.  Each thread keeps a 64-bit bit buffer refilled with
-// aligned big-endian 32-bit loads from its stream's 6,656-byte segment
-// (words past the segment read as 0: the last codes of a valid stream rely on
-// that zero padding) and writes its symbols four to a 32-bit store.  Bound on
-// this card: the serial dependence of a stream's 4,096 steps (a shared-memory
-// lookup, then shifts); a 4 MiB block gives 1,024 threads.
+// (huffman_decode_pallas.py:240).  A chunk's four streams of 4,096 steps
+// each are serial chains, and a step is a table lookup of the 12-bit window
+// at the stream's bit position, which then advances by the code length.
+// Bound on this card: the latency of one step, 4,096 times over, with the
+// work beside the chain issued by the same warp; the 1,024 streams of a
+// 4 MiB block run side by side, so only a shorter step (and a short start)
+// makes a launch faster.  What the design does about it:
+//   - A warp a chunk (a CTA of 32 threads, its 35,200 B of shared memory
+//     static).  The 32 lanes first issue the cp.async copies of the
+//     chunk's four 6,656-byte payload segments into shared memory, each
+//     with 16 zero bytes behind it (zero fill past the segment: the refill
+//     and its next word read ahead of the window, and must read zeros
+//     there, never the next stream's bytes), then build the chunk's tables
+//     of every 12-bit window, its length L and its symbol (4 KiB each),
+//     while the copies land, from the canonical arithmetic of the TPU
+//     kernel:
+//       L   = 1 + #{l in 1..12 : boundary[l] <= v}
+//       sym = perm[(adj[L] - 8192 + (v >> (12 - L))) & 255] & 255   for L <= 12
+//     which is the host decoder's own table shape (entropy/huffman.py:
+//     432-445), so symbols come out directly and no rank pass is needed.  A
+//     window past the last code (L = 13, only on an incomplete code)
+//     decodes to symbol 0 and advances 13 bits, in the plain version too;
+//     the glue then sees the bit count mismatch.  Then lanes 0-3 decode the
+//     four streams.
+//   - A short chain: a stream's unread bits sit MSB-aligned in two 32-bit
+//     registers, at least 13 of them at a step's start, so the window is
+//     valid before any refill.  The refill (with at most 32 bits left, the
+//     next big-endian word, held in a register, goes right below them; the
+//     word after it is read from shared memory at the step's start, its
+//     address known from the word count) is selects beside the lookup, not
+//     behind it.  A step's chain is the window's shift, the length's load
+//     and the buffer's funnel shift: no branch, no mask and no other load
+//     behind the lookup; the symbol's load is beside it.
+//   - Each lane packs its 16 symbols of 16 steps into four words and writes
+//     them with one 16-byte store.
+// Measured beside it (PERF.md section 6): two chunks a CTA with one
+// len | symbol << 8 table, slower; the staged words byte-swapped once, a
+// word pointer in place of the count, no faster.
+// 4,096 steps of at most 13 bits read at most 53,248 bits, the segment's
+// length, so the window never reaches past it; `used` is each stream's
+// final bit position.
 
-constexpr int kDecChunksPerCta = 8;
-constexpr int kDecThreads = 4 * kDecChunksPerCta;
-constexpr size_t kDecSmem = kDecChunksPerCta * (kWin * sizeof(uint16_t) + 256 + 16 * sizeof(int32_t));
+constexpr int kDecBlock = 16;                     // steps a 16-byte store
+constexpr int kSegStaged = kSegBytes + 16;        // a segment and its zero tail
+constexpr int kSegLines = kSegStaged / 16;
 
-__global__ void __launch_bounds__(kDecThreads)
+// a chunk's shared memory (35,200 B)
+struct DecodeSmem {
+  alignas(16) uint8_t seg[4][kSegStaged];
+  uint8_t len[kWin];                              // L by window
+  uint8_t sym[kWin];                              // symbol by window
+  int32_t adj[16];
+  uint8_t perm[256];
+};
+
+__device__ __forceinline__ uint32_t be32(const uint32_t* w, int i) {
+  return __byte_perm(w[i], 0u, 0x0123u);
+}
+
+__global__ void __launch_bounds__(32)
 huffman_decode_kernel(const uint8_t* __restrict__ pay, const int32_t* __restrict__ bnd,
                       const int32_t* __restrict__ adj, const int32_t* __restrict__ perm,
-                      uint8_t* __restrict__ syms, int32_t* __restrict__ used, int n) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  uint16_t* lut = reinterpret_cast<uint16_t*>(smem);                          // [8][4096]
-  int32_t* adj_s = reinterpret_cast<int32_t*>(lut + kDecChunksPerCta * kWin);  // [8][16]
-  uint8_t* perm_s = reinterpret_cast<uint8_t*>(adj_s + kDecChunksPerCta * 16); // [8][256]
-  const int first = static_cast<int>(blockIdx.x) * kDecChunksPerCta;
-  const size_t base = static_cast<size_t>(first);
+                      uint8_t* __restrict__ syms, int32_t* __restrict__ used) {
+  __shared__ DecodeSmem sh;
   const int lane = threadIdx.x;
-  const int nloc = min(kDecChunksPerCta, n - first);   // chunks of this CTA
+  const size_t row = blockIdx.x;
+  const uint8_t* src = pay + row * (4 * kSegBytes);
+  for (int q = lane; q < 4 * kSegLines; q += 32) {
+    const int j = q / kSegLines;
+    const uint32_t pos = 16u * static_cast<uint32_t>(q - j * kSegLines);
+    stage16(sh.seg[j] + pos, src + j * kSegBytes, pos, kSegBytes);
+  }
+  stage_commit();
 
-  for (int c = 0; c < nloc; ++c) {
-    const size_t row = base + c;
-    if (lane < 13) adj_s[c * 16 + lane] = adj[row * 128 + lane];
-    for (int k = lane; k < 256; k += kDecThreads) perm_s[c * 256 + k] = static_cast<uint8_t>(perm[row * 256 + k]);
+  if (lane < 13) sh.adj[lane] = adj[row * 128 + lane];
+  for (int k = lane; k < 256; k += 32) sh.perm[k] = static_cast<uint8_t>(perm[row * 256 + k]);
+  uint32_t b[kMaxLen];
+#pragma unroll
+  for (int l = 0; l < kMaxLen; ++l) {
+    b[l] = (static_cast<uint32_t>(bnd[row * 128 + (l >> 1)]) >> (16 * (l & 1))) & 0xFFFFu;
   }
   __syncwarp();
-  for (int c = 0; c < nloc; ++c) {
-    const size_t row = base + c;
-    uint32_t b[kMaxLen];
+  for (int v = lane; v < kWin; v += 32) {
+    int L = 1;
 #pragma unroll
-    for (int l = 0; l < kMaxLen; ++l) {
-      b[l] = (static_cast<uint32_t>(bnd[row * 128 + (l >> 1)]) >> (16 * (l & 1))) & 0xFFFFu;
+    for (int l = 0; l < kMaxLen; ++l) L += b[l] <= static_cast<uint32_t>(v) ? 1 : 0;
+    uint32_t sym = 0;
+    if (L <= kMaxLen) {
+      // modulo 2^32, so any adj (a corrupt header's too) gives a defined rank
+      const uint32_t rank = static_cast<uint32_t>(sh.adj[L]) - 8192u +
+                            static_cast<uint32_t>(v >> (kMaxLen - L));
+      sym = sh.perm[rank & 255u];
     }
-    for (int v = lane; v < kWin; v += kDecThreads) {
-      int L = 1;
-#pragma unroll
-      for (int l = 0; l < kMaxLen; ++l) L += b[l] <= static_cast<uint32_t>(v) ? 1 : 0;
-      uint32_t sym = 0;
-      if (L <= kMaxLen) {
-        // modulo 2^32, so any adj (a corrupt header's too) gives a defined rank
-        const uint32_t rank = static_cast<uint32_t>(adj_s[c * 16 + L]) - 8192u +
-                              static_cast<uint32_t>(v >> (kMaxLen - L));
-        sym = perm_s[c * 256 + (rank & 255u)];
-      }
-      lut[c * kWin + v] = static_cast<uint16_t>((L << 8) | sym);
-    }
+    sh.len[v] = static_cast<uint8_t>(L);
+    sh.sym[v] = static_cast<uint8_t>(sym);
   }
+  stage_wait<0>();
   __syncwarp();
+  if (lane >= 4) return;
 
-  const int local = lane >> 2;
-  const int j = lane & 3;
-  if (local >= nloc) return;
-  const size_t row = base + local;
-  const uint32_t* seg = reinterpret_cast<const uint32_t*>(pay + row * (4 * kSegBytes) + j * kSegBytes);
-  uint32_t* dst = reinterpret_cast<uint32_t*>(syms + row * kChunk + j * kStream);
-  const uint16_t* tb = lut + local * kWin;
-  uint64_t buf = 0;     // unread bits, MSB-aligned
-  int have = 0;         // valid bits in buf
-  int wi = 0;           // next 32-bit word of the segment
+  const int j = lane;
+  const uint32_t* seg = reinterpret_cast<const uint32_t*>(sh.seg[j]);
+  uint4* dst = reinterpret_cast<uint4*>(syms + row * kChunk + j * kStream);
+  // the unread bits, MSB-aligned in hi:lo; at least 13 of them at a step's start
+  uint32_t hi = be32(seg, 0), lo = be32(seg, 1);
+  uint32_t have = 64;
+  int wi = 2;           // the word after the buffer's bits
+  uint32_t nw = be32(seg, 2);
   uint32_t pos = 0;     // bits consumed
-  uint32_t out4 = 0;
-  for (int t = 0; t < kStream; ++t) {
-    if (have < kMaxLen + 1) {
-      const uint32_t w = wi < kSegWords ? __byte_perm(seg[wi], 0u, 0x0123u) : 0u;
-      buf |= static_cast<uint64_t>(w) << (32 - have);
-      have += 32;
-      ++wi;
+  for (int t0 = 0; t0 < kStream; t0 += kDecBlock) {
+    uint32_t out[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+    for (int s = 0; s < kDecBlock; ++s) {
+      const uint32_t v = hi >> (32 - kMaxLen);   // the window is valid before the refill
+      const uint32_t L = sh.len[v];
+      // the refill, while the lookup is in flight: with at most 32 bits
+      // left, nw goes right below them (have >= 13, so both shifts are
+      // under 32; __funnelshift_rc clamps have = 32 to a 0)
+      const uint32_t nx = be32(seg, wi + 1);
+      const bool need = have <= 32;
+      hi = need ? hi | __funnelshift_rc(nw, 0u, have) : hi;
+      lo = need ? nw << ((32 - have) & 31) : lo;
+      have += need ? 32 : 0;
+      wi += need ? 1 : 0;
+      nw = need ? nx : nw;
+      hi = __funnelshift_l(lo, hi, L);
+      lo = __funnelshift_l(0u, lo, L);
+      have -= L;
+      pos += L;
+      out[s >> 2] |= static_cast<uint32_t>(sh.sym[v]) << (8 * (s & 3));
     }
-    const uint32_t e = tb[buf >> (64 - kMaxLen)];
-    const uint32_t L = e >> 8;
-    buf <<= L;
-    have -= static_cast<int>(L);
-    pos += L;
-    out4 |= (e & 255u) << (8 * (t & 3));
-    if ((t & 3) == 3) {
-      dst[t >> 2] = out4;
-      out4 = 0;
-    }
+    dst[t0 / kDecBlock] = make_uint4(out[0], out[1], out[2], out[3]);
   }
   used[row * 4 + j] = static_cast<int32_t>(pos);
 }
@@ -262,15 +301,10 @@ int kz_huffman_encode(const void* chunks, const void* tbl, void* words, void* n_
 int kz_huffman_decode(const void* pay, const void* bnd, const void* adj, const void* perm,
                       void* syms, void* used, int n, void* stream) {
   if (n > 0) {
-    cudaError_t err = cudaFuncSetAttribute(huffman_decode_kernel,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           static_cast<int>(kDecSmem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    const int grid = (n + kDecChunksPerCta - 1) / kDecChunksPerCta;
-    huffman_decode_kernel<<<grid, kDecThreads, kDecSmem, as_stream(stream)>>>(
+    huffman_decode_kernel<<<n, 32, 0, as_stream(stream)>>>(
         static_cast<const uint8_t*>(pay), static_cast<const int32_t*>(bnd),
         static_cast<const int32_t*>(adj), static_cast<const int32_t*>(perm),
-        static_cast<uint8_t*>(syms), static_cast<int32_t*>(used), n);
+        static_cast<uint8_t*>(syms), static_cast<int32_t*>(used));
   }
   return static_cast<int>(cudaGetLastError());
 }

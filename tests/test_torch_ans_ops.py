@@ -18,6 +18,7 @@ from kanzi_tpu.ops import ans as jans
 from kanzi_tpu.ops import ans_pallas as P
 from kanzi_tpu.ops.ans_block import _chunk_stats
 from kanzi_tpu.utils.corpus import mixed_corpus
+from kanzi_tpu_torch.ops import ans1_cuda as A1
 from kanzi_tpu_torch.ops import ans_cuda as A
 
 CHUNK = 16384
@@ -187,10 +188,10 @@ def test_full_encode_matches_xla():
     assert np.array_equal(s3, st_x)
 
 
-def test_encode_scan_ref_division_edge():
-    """f = 4095 dividing states just under 2^31 (quotients near 2^19), where
-    the TPU's f32 quotient needs its correction: encode_scan_ref against
-    ops/ans.ans0_encode_chunks on tables that drive the states there."""
+def _division_edge_case():
+    """(freq, cum, chunks): 30 rows of 4,096 bytes of five symbols, f = 4095
+    beside f = 1, 3, 37 and 700 (and f = 0 for the absent ones), cum 1 under
+    the 4095, so that states just under 2^31 are divided by 4095."""
     n, c = 30, 4096
     freq = np.zeros((n, 256), np.int64)
     cum = np.zeros((n, 256), np.int64)
@@ -198,6 +199,15 @@ def test_encode_scan_ref_division_edge():
     cum[:, 0] = 1
     chunks = np.stack([np.random.default_rng(s).choice(
         5, c, p=[0.5, 0.1, 0.1, 0.15, 0.15]).astype(np.uint8) for s in range(n)])
+    return freq, cum, chunks
+
+
+def test_encode_scan_ref_division_edge():
+    """f = 4095 dividing states just under 2^31 (quotients near 2^19), where
+    the TPU's f32 quotient needs its correction: encode_scan_ref against
+    ops/ans.ans0_encode_chunks on tables that drive the states there."""
+    freq, cum, chunks = _division_edge_case()
+    n, c = chunks.shape
     pay_x, ne_x, st_x = (np.asarray(a) for a in jans.ans0_encode_chunks(
         jnp.asarray(chunks), jnp.asarray(freq, jnp.int32),
         jnp.asarray(cum, jnp.int32)))
@@ -222,6 +232,43 @@ def test_encode_scan_ref_division_edge():
                 best = max(best, x)
             st[t & 3] = ((x // f) << 12) + x % f + int(cum[0, s])
     assert best > (1 << 31) - (1 << 21)
+
+
+def _encode_scan_recip(chunks, tables):
+    """ANS0's encode scan as the kernel computes it: the doubled state
+    st2 = 2 st stepped by ans1_cuda.ans_step_recip_ref at logRange 12 (the
+    reciprocal of recip_table(12) in place of the divide), the emitted
+    flag << 16 | val split into the word and the flag at the byte's own
+    position, and the state written back as st2 >> 1."""
+    rcp, shift = A1.recip_table(A.LOG_RANGE)
+    n, c = chunks.shape
+    lk = tables.long().gather(1, chunks.long())
+    st2 = torch.full((n, 4), 2 * A.ANS_TOP, dtype=torch.int64)
+    emit = torch.empty((n, c), dtype=torch.int64)
+    for t in range(c // 4):
+        cols = c - 1 - 4 * t - torch.arange(4)      # lane u codes byte c - 1 - 4t - u
+        emit[:, cols], st2 = A1.ans_step_recip_ref(st2, lk[:, cols], A.LOG_RANGE, rcp, shift)
+    words = torch.where(emit >> 16 != 0, emit & 0xFFFF, 0)
+    return A._i16(words), (emit >> 16).to(torch.uint8), (st2 >> 1).to(torch.int32)
+
+
+@pytest.mark.parametrize("case", ["edge_rows", "division_edge"])
+def test_encode_scan_recip_matches_ref(case):
+    """The kernel's arithmetic on doubled states with a reciprocal equals
+    encode_scan_ref bit for bit: on the edge rows (one byte, capped to
+    4095; one dominant byte; uniform; skewed; corpus text) with their
+    normalised tables, and on the division-edge tables."""
+    if case == "edge_rows":
+        chunks = _t(_edge_chunks())
+        _, tables = A.make_tables(A.hist_norm_ref(chunks))
+    else:
+        freq, cum, ch = _division_edge_case()
+        chunks = _t(ch)
+        tables = _t((np.minimum(freq, 4095) | (cum << 12)).astype(np.int32))
+    got = _encode_scan_recip(chunks, tables)
+    want = A.encode_scan_ref(chunks, tables)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
 
 
 def _decode_scalar(pay, length, states, freq):

@@ -210,6 +210,26 @@ def test_decode_chunks_ref_corrupt_stream(case):
         assert pos + 12 > 8 * H.PAY_STRIDE      # the last windows ran past the segment
 
 
+def test_decode_chunks_ref_all_ones_ends_at_segment_end():
+    """The incomplete code on all-ones payload bytes: every window is past
+    the last code, so every step advances 13 bits and each stream ends
+    exactly at its segment's end, bit 53,248 = 8 x 6,656, having read no
+    bit past it (the decode kernel's refill reads ahead of that position,
+    into zero fill)."""
+    sizes = np.full(256, 8, np.int64)
+    sizes[200] = 12
+    bnd, adj, perm = B.build_decode_tables([sizes], [np.array([200])])
+    pay = np.full((1, H.PAY_WIDTH), 255, np.uint8)
+    syms, used = H.decode_chunks_ref(_t(pay), _t(bnd), _t(adj), _t(perm))
+    lens, symt = (a.numpy()[0] for a in H._window_tables(_t(bnd), _t(adj), _t(perm)))
+    assert lens[4095] == 13 and symt[4095] == 0
+    assert np.array_equal(used.numpy(), np.full((1, 4), 13 * STREAM))
+    assert 13 * STREAM == 8 * H.PAY_STRIDE
+    assert not syms.numpy().any()
+    want, pos = _decode_scalar(pay[0, :H.PAY_STRIDE], lens, symt)
+    assert pos == 13 * STREAM and not any(want)
+
+
 def test_wrappers_refuse_other_devices():
     meta = torch.empty((2, CHUNK), dtype=torch.uint8, device="meta")
     for call in (lambda: H.hist(meta),
