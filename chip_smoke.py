@@ -21,7 +21,12 @@ Phases, one line each; any failure raises and the exit code is not 0:
      fails); ans0_decode also on the CPU tests' corrupt cases (tables no
      valid stream holds, cut lengths, states >= 2^31, an odd pitch);
      huffman_decode also on the CPU tests' incomplete code, on random and
-     on all-ones payload bytes (every stream then ends at bit 53,248); the
+     on all-ones payload bytes (every stream then ends at bit 53,248);
+     huffman_encode also on a random 16-bit table (code lengths 0-15, codes
+     wider than their length) and on an all-15-bit table (every stream
+     3,840 words); ans0_compact also with every position flagged and none
+     flagged, at width 4,076 (its scalar path) and at 40,000 (three tiles,
+     the count carried from tile to tile); the
      three chains' cycles a step (ms x the maximum SM clock / 4,096);
      lz_words on 8 x 4 MiB rows of mixed_corpus(64 MiB, seed=12) (one flat
      dispatch of level 1), the last row's last 1 KiB repeating the KiB
@@ -38,8 +43,10 @@ Phases, one line each; any failure raises and the exit code is not 0:
      pass count and each kind of pass timed alone (and, untimed, at eight
      small shapes of 1-8 operands that take the launcher's other paths);
      all times by CUDA
-     events, warm, median of 5, at one main-path launch's shape (ans1_scan
-     at the six chunks of its plain run)
+     events around the wrapper, warm, median of 5, at one main-path launch's
+     shape (ans1_scan at the six chunks of its plain run), and each kernel's
+     time on the card alone (its launches queued behind a spin kernel, so
+     that the wrapper's host time hides; the mean of 10)
   3  ANS0 alone (transform NONE), 64 MiB of mixed_corpus(seed=12), 4 MiB
      blocks, jobs=8: the port's stream on the card equals its host-coder
      stream (device=None), the port decodes it on the card, the host coders
@@ -163,6 +170,37 @@ def time_ms(fn, reps: int = 5) -> float:
     return statistics.median(times)
 
 
+def device_ms(fn, reps: int = 10) -> float:
+    """The card's time of ``fn`` with the host's share hidden: a spin kernel
+    (torch.cuda._sleep) holds the stream while ``reps`` runs are queued
+    behind it, and CUDA events around those runs give their time on the
+    card, a run's mean.  Unlike time_ms, the host's time in the wrapper
+    before each launch does not count; the gaps between queued launches
+    do.  The spin is doubled until the queue is full before the card
+    reaches the first event."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    spin_s = 2 * reps * (time.perf_counter() - t) + 2e-3
+    for _ in range(6):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(int(spin_s * 2e9))
+        a.record()
+        for _ in range(reps):
+            fn()
+        b.record()
+        queued = not a.query()
+        b.synchronize()
+        if queued:
+            return a.elapsed_time(b) / reps
+        spin_s *= 2
+    raise RuntimeError("chip_smoke check failed: the launches never queued behind the spin")
+
+
 def nbytes(*ts) -> int:
     """Bytes of the tensors in ``ts`` (nested lists and tuples flattened)."""
     total = 0
@@ -186,14 +224,15 @@ def bound(inputs, outputs, ops: float) -> dict:
 
 def timed(rec: dict, name: str, kern, plain, inputs, elements: int,
           library=None, ops: float | None = None) -> dict:
-    """Times of the kernel, its plain version and (where one PyTorch call
-    computes the same function) that call, and the kernel's bound; ``ops``
-    overrides OPS_PER_ELEMENT[name] * elements."""
+    """Times of the kernel (around its wrapper, and on the card alone), its
+    plain version and (where one PyTorch call computes the same function)
+    that call, and the kernel's bound; ``ops`` overrides
+    OPS_PER_ELEMENT[name] * elements."""
     out = kern()
     if ops is None:
         ops = OPS_PER_ELEMENT[name] * elements
     rec.setdefault(name, {}).update(
-        ms=time_ms(kern), plain_ms=time_ms(plain),
+        ms=time_ms(kern), device_ms=device_ms(kern), plain_ms=time_ms(plain),
         library_ms=time_ms(library) if library else None, **bound(inputs, out, ops))
     return rec[name]
 
@@ -260,6 +299,13 @@ def phase2_ans0(dev, rows) -> dict:
     check(all(torch.equal(a, b) for a, b in zip(cmp_, cmp_r)),
           "compact differs from its plain version")
     rec["ans0_compact"] = {"max_abs_err": max_abs_err(cmp_, cmp_r)}
+    for label, args in compact_edge_cases(words, flags).items():
+        got, want = A.compact(*args), A.compact_ref(*args)
+        check(all(torch.equal(a, b) for a, b in zip(got, want)),
+              f"compact differs from its plain version on {label}")
+        rec["ans0_compact"]["max_abs_err"] = max(rec["ans0_compact"]["max_abs_err"],
+                                                 max_abs_err(got, want))
+        rec["ans0_compact"].setdefault("edge_cases", []).append(label)
 
     payload, n_emit = cmp_
     w = payload.to(torch.int32) & 0xFFFF
@@ -308,9 +354,12 @@ def phase2_ans0(dev, rows) -> dict:
 def per_step(r: dict, fn) -> None:
     """A launch's cycles a step at 256 x 16 KiB: its ms x the maximum SM
     clock / the 4,096 steps of each chain (the chains run side by side),
-    and the same at the SM clock read while ``fn`` runs back to back."""
+    the same of its time on the card alone, and the first at the SM clock
+    read while ``fn`` runs back to back."""
     r["sm_clock_max_mhz"] = sm_clock_mhz()
     r["cycles_per_step"] = r["ms"] * 1e-3 * r["sm_clock_max_mhz"] * 1e6 / (CHUNK // 4)
+    r["cycles_per_step_card"] = (r["device_ms"] * 1e-3 * r["sm_clock_max_mhz"] * 1e6
+                                 / (CHUNK // 4))
     r["sm_clock_load_mhz"] = sm_clock_under_load(fn)
     r["cycles_per_step_load_clock"] = r["ms"] * 1e-3 * r["sm_clock_load_mhz"] * 1e6 / (CHUNK // 4)
 
@@ -336,6 +385,22 @@ def scan_edge_cases(dev) -> dict:
     x = torch.from_numpy(chunks).to(dev)
     return {"division edge, f = 0 absent": (x, tables),
             "width 4,076": (x[:, :4076].contiguous(), tables)}
+
+
+def compact_edge_cases(words, flags) -> dict:
+    """The compaction's other paths, on phase 2's encode-scan words: every
+    position flagged and none flagged at 16,384; the rows cut to 4,076 (a
+    width that is no multiple of 16 takes the scalar partition); and the
+    words and flags of eight rows laid out as rows of 40,000 (three tiles,
+    the running count carried twice).  Each: the compaction's two
+    arguments."""
+    import torch
+    n = 8 * 40000 // CHUNK + 1
+    return {"all flagged": (words, torch.ones_like(flags)),
+            "none flagged": (words, torch.zeros_like(flags)),
+            "width 4,076": (words[:, :4076].contiguous(), flags[:, :4076].contiguous()),
+            "width 40,000": (words[:n].reshape(-1)[:8 * 40000].reshape(8, 40000),
+                             flags[:n].reshape(-1)[:8 * 40000].reshape(8, 40000))}
 
 
 def corrupt_decode_cases(pay, lengths, states, freq, cum) -> dict:
@@ -409,6 +474,16 @@ def phase2_huffman(dev, rows) -> dict:
     check(all(torch.equal(a, b) for a, b in zip(enc, enc_r)),
           "huffman_encode differs from its plain version")
     rec["huffman_encode"] = {"max_abs_err": max_abs_err(enc, enc_r)}
+    for label, t16 in huffman_encode_tables(n).items():
+        tb = torch.from_numpy(t16.view(np.int32)).to(dev)
+        got, want = H.encode_streams(x, tb), H.encode_streams_ref(x, tb)
+        check(all(torch.equal(a, b) for a, b in zip(got, want)),
+              f"huffman_encode differs from its plain version on {label}")
+        if label == "all-15-bit table":
+            check(bool((got[1] == 3840).all()), "all-15-bit table: a stream is not 3,840 words")
+        rec["huffman_encode"]["max_abs_err"] = max(rec["huffman_encode"]["max_abs_err"],
+                                                   max_abs_err(got, want))
+        rec["huffman_encode"].setdefault("edge_cases", []).append(label)
 
     # the wire's byte-aligned streams at 6,656-byte strides; one corrupt row
     words, n_words, acc, nbits = enc
@@ -456,6 +531,18 @@ def phase2_huffman(dev, rows) -> dict:
               lambda: H.decode_chunks_ref(pm, bm, am, qm), (pm, bm, am, qm), e)
     per_step(r, lambda: H.decode_chunks(pm, bm, am, qm))
     return rec
+
+
+def huffman_encode_tables(n: int) -> dict:
+    """Tables no valid stream holds, one a chunk (N, 256) u16, as
+    tests/test_torch_huffman_ops.py runs them: random 16-bit entries
+    (lengths 0-15, codes wider than their length) and all lengths 15 (every
+    stream 3,840 words, the most a kernel row holds)."""
+    import numpy as np
+    rng = np.random.default_rng(9)
+    code = rng.integers(0, 1 << 12, (n, 256))
+    return {"random 16-bit table": rng.integers(0, 1 << 16, (n, 256)).astype(np.uint16),
+            "all-15-bit table": ((15 << 12) | code).astype(np.uint16)}
 
 
 def huffman_incomplete_cases(dev) -> dict:
@@ -671,7 +758,8 @@ def phase2_ans1(dev, data: bytes) -> dict:
     x1, p1 = x[:1], packed[:1]
     e1 = e[:BLOCK // CHUNK]
     r = rec["ans1_scan"]
-    r.update(ms=time_ms(lambda: A1.scan_chunks(x, packed)), library_ms=None,
+    r.update(ms=time_ms(lambda: A1.scan_chunks(x, packed)),
+             device_ms=device_ms(lambda: A1.scan_chunks(x, packed), reps=3), library_ms=None,
              **bound((x, packed), sc, OPS_PER_ELEMENT["ans1_scan"] * x.numel()))
     x32, p32 = x1.expand(32, BLOCK).contiguous(), p1.expand(32, 65536).contiguous()
     e32, s32 = A1.scan_chunks(x32, p32)
@@ -1066,9 +1154,10 @@ def main() -> int:
     for name, r in kern.items():
         lib = "" if r["library_ms"] is None else f", library call {r['library_ms']:.4f} ms"
         once = " (one run)" if name == "ans1_scan" else ""
-        print(f"phase 2: {name}: bit-equal to its plain version; kernel {r['ms']:.4f} ms, "
-              f"plain {r['plain_ms']:.4f} ms{once}{lib}, bound {r['bound_ms']:.4f} ms "
-              f"({r['bound_by']}) at {TIMED_AT.get(name, '256 x 16 KiB')}")
+        print(f"phase 2: {name}: bit-equal to its plain version; kernel {r['ms']:.4f} ms "
+              f"({r['device_ms']:.4f} on the card alone), plain {r['plain_ms']:.4f} ms{once}"
+              f"{lib}, bound {r['bound_ms']:.4f} ms ({r['bound_by']}) at "
+              f"{TIMED_AT.get(name, '256 x 16 KiB')}")
     if "ans1_scan" in kern:
         r = kern["ans1_scan"]
         print(f"phase 2: ans1_scan: one chunk {r['ms_1_chunk']:.4f} ms, 32 chunks in one launch "
@@ -1084,10 +1173,15 @@ def main() -> int:
         if name in kern:
             r = kern[name]
             print(f"phase 2: {name}: {r['cycles_per_step']:.1f} cycles a step at the "
-                  f"{r['sm_clock_max_mhz']:.0f} MHz maximum SM clock, "
+                  f"{r['sm_clock_max_mhz']:.0f} MHz maximum SM clock "
+                  f"({r['cycles_per_step_card']:.1f} on the card alone), "
                   f"{r['cycles_per_step_load_clock']:.1f} at the {r['sm_clock_load_mhz']:.0f} "
                   f"MHz read under its load; bit-equal to its plain version on "
                   f"{', '.join(r[cases])}")
+    for name in ("huffman_encode", "ans0_compact"):
+        if name in kern:
+            print(f"phase 2: {name}: bit-equal to its plain version also on "
+                  f"{', '.join(kern[name]['edge_cases'])}")
     if "ans0_encode_scan" in kern:
         r = kern["ans0_encode_scan"]
         print(f"phase 2: ans0_encode_scan: the chain alone (scan_chain, clock64) "
@@ -1162,7 +1256,8 @@ def main() -> int:
              **{key: kern[name][key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                                   "bound_by", "library_ms")},
              "timed_at": TIMED_AT.get(name, "256 x 16 KiB")}
-        for key in ("ms_1_chunk", "ms_32_chunks", "cycles_per_step", "chain_cycles_per_step",
+        for key in ("device_ms", "ms_1_chunk", "ms_32_chunks", "cycles_per_step",
+                    "cycles_per_step_card", "chain_cycles_per_step",
                     "floor_ms", "recip_pairs", "recip_mismatches", "recip", "sm_clock_load_mhz",
                     "cycles_per_step_load_clock", "corrupt_cases",
                     "edge_cases", "passes", "pass_ms", "at"):

@@ -254,26 +254,103 @@ encode_scan_kernel(const uint8_t* __restrict__ chunks, const int32_t* __restrict
 // kernel 3: payload compaction (stable partition of the flagged words)
 // ---------------------------------------------------------------------------
 //
-// Replaces kanzi_tpu/ops/ans_pallas.py _compact2_kernel (:487).  One CTA of
-// 1024 threads per chunk runs compact_tile (compact.cuh, shared with
-// ans1_compact) over the chunk's words and flags: 16 consecutive positions a
-// thread for a 16 KiB chunk.  Bound on this card: DRAM bytes (3 bytes read
-// and 2 written per position).
+// Replaces kanzi_tpu/ops/ans_pallas.py _compact2_kernel (:487), which the TPU
+// ran as MXU prefix sums and 0/1 placement matmuls.  Bound on this card:
+// bytes, 3 read and 2 written a position (20 MiB a 4 MiB block, 0.0063 ms
+// at 3.35 TB/s).  The design: a CTA of 512 threads a row walks it in tiles
+// of 16,384 positions, 32 consecutive ones a thread.
+//   - A thread reads its 32 flags and 32 words once, as 2 + 4 16-byte loads
+//     issued together, counts its flags (__vcmpne4, __popc) and takes its
+//     offset from block_excl_scan (compact.cuh).
+//   - It writes its flagged words, in order, into a staging row in shared
+//     memory; after one barrier the CTA stores the staged words with
+//     coalesced 16-byte stores.  A tile stores only whole 16-byte groups;
+//     the fewer than 8 words left over move to the staging row's start and
+//     go out with the next tile, so the running count carries from tile to
+//     tile and every store stays aligned.  The last tile stores the rest,
+//     then zeros to the row's end, in the same 16-byte stores.
+// A width that is no multiple of 16 (rows not 16-byte aligned), or 0, takes
+// the scalar partition of compact.cuh, compact_tile, in the same kernel.
+// Measured (PERF.md section 6), on the card alone: 0.0079 ms a block,
+// 1.25 x its DRAM bound, against 0.0240 for the partition of compact.cuh
+// at 1,024 threads a row.
 
-constexpr int kCompactThreads = 1024;
+constexpr int kCompactThreads = 512;
+constexpr int kCompactPer = 32;                                // positions a thread a tile
+constexpr int kCompactTile = kCompactThreads * kCompactPer;    // 16,384
+
+// a row's shared memory (32.1 KiB)
+struct CompactSmem {
+  alignas(16) int16_t stage[kCompactTile + 16];   // 7 carried words, a tile, 8 zeros
+  int red[kCompactThreads / 32 + 1];
+};
 
 __global__ void __launch_bounds__(kCompactThreads)
 compact_kernel(const int16_t* __restrict__ words, const uint8_t* __restrict__ flags,
                int16_t* __restrict__ payload, int32_t* __restrict__ n_emit, int c) {
-  __shared__ int red[kCompactThreads / 32 + 1];
+  __shared__ CompactSmem sh;
   const size_t row = blockIdx.x;
   const int16_t* wv = words + row * c;
   const uint8_t* wf = flags + row * c;
-  int mine;
-  const int total = compact_tile<kCompactThreads>(
-      [&](int i) { return wf[i] != 0 ? static_cast<int>(static_cast<uint16_t>(wv[i])) : -1; },
-      c, payload + row * c, red, &mine);
-  if (threadIdx.x == 0) n_emit[row] = total;
+  int16_t* out = payload + row * c;
+  const int tid = threadIdx.x;
+  if ((c & 15) || c == 0) {
+    int mine;
+    const int total = compact_tile<kCompactThreads>(
+        [&](int i) { return wf[i] != 0 ? static_cast<int>(static_cast<uint16_t>(wv[i])) : -1; },
+        c, out, sh.red, &mine);
+    if (tid == 0) n_emit[row] = total;
+    return;
+  }
+  int head = 0;       // carried words at stage[0, head)
+  int done = 0;       // words stored, a multiple of 8
+  for (int s = 0; s < c; s += kCompactTile) {
+    const int lo = s + tid * kCompactPer;
+    uint4 f[2], w[4];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      // c is a multiple of 16, so a group of 16 positions is wholly in or out
+      const bool in = lo + 16 * h < c;
+      const uint4 z = make_uint4(0u, 0u, 0u, 0u);
+      f[h] = in ? __ldg(reinterpret_cast<const uint4*>(wf + lo) + h) : z;
+      w[2 * h] = in ? __ldg(reinterpret_cast<const uint4*>(wv + lo) + 2 * h) : z;
+      w[2 * h + 1] = in ? __ldg(reinterpret_cast<const uint4*>(wv + lo) + 2 * h + 1) : z;
+    }
+    const uint32_t fw[8] = {f[0].x, f[0].y, f[0].z, f[0].w, f[1].x, f[1].y, f[1].z, f[1].w};
+    const uint32_t ww[16] = {w[0].x, w[0].y, w[0].z, w[0].w, w[1].x, w[1].y, w[1].z, w[1].w,
+                             w[2].x, w[2].y, w[2].z, w[2].w, w[3].x, w[3].y, w[3].z, w[3].w};
+    int cnt = 0;
+#pragma unroll
+    for (int k = 0; k < 8; ++k) cnt += __popc(__vcmpne4(fw[k], 0u)) >> 3;
+    int total;
+    int off = head + block_excl_scan<kCompactThreads>(cnt, sh.red, &total);
+#pragma unroll
+    for (int k = 0; k < kCompactPer; ++k) {
+      if ((fw[k >> 2] >> (8 * (k & 3))) & 255u) {
+        sh.stage[off++] = static_cast<int16_t>(ww[k >> 1] >> (16 * (k & 1)));
+      }
+    }
+    const int avail = head + total;
+    const bool last = s + kCompactTile >= c;
+    if (last && tid < 8) sh.stage[avail + tid] = 0;
+    __syncthreads();
+    uint4* dst = reinterpret_cast<uint4*>(out + done);
+    const uint4* st = reinterpret_cast<const uint4*>(sh.stage);
+    if (last) {
+      for (int q = tid; q < (c - done) / 8; q += kCompactThreads) {
+        dst[q] = 8 * q < avail ? st[q] : make_uint4(0u, 0u, 0u, 0u);
+      }
+      if (tid == 0) n_emit[row] = done + avail;
+      break;
+    }
+    const int full = avail & ~7;
+    for (int q = tid; q < full / 8; q += kCompactThreads) dst[q] = st[q];
+    __syncthreads();
+    // the leftover words to the start; full >= 8 keeps source and target apart
+    if (full && tid < avail - full) sh.stage[tid] = sh.stage[full + tid];
+    head = avail - full;
+    done += full;
+  }
 }
 
 // ---------------------------------------------------------------------------

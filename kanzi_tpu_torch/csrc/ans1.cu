@@ -246,8 +246,8 @@ recip_check_kernel(unsigned long long* __restrict__ counts) {
 //
 // Replaces kanzi_tpu/ops/ans_pallas.py _compact_kernel (:480) in its
 // standalone use (ANS1, :970).  One CTA of 1024 threads per tile of nb * 128
-// packed flag << 16 | val words runs compact_tile (compact.cuh, shared with
-// ans0_compact); then the per-128-word block counts of the contract: each
+// packed flag << 16 | val words runs compact_tile (compact.cuh; ans0_compact
+// runs it for widths that are no multiple of 16); then the per-128-word block counts of the contract: each
 // thread's run (nb / 8 words, or 1) lies inside one block, so a shared
 // atomic per thread sums them.  Bound on this card: DRAM bytes, 4 read and 2
 // written per position.

@@ -1,6 +1,8 @@
 // Block-wide prefix sums and the stable partition of one tile of flagged
-// 16-bit words, shared by ans0.cu (ans0_compact, and the scans of
-// hist_norm) and ans1.cu (ans1_compact).
+// 16-bit words, shared by ans0.cu (ans0_compact: the partition for widths
+// that are no multiple of 16, the block scan of its tiled path; the scans
+// of hist_norm), ans1.cu (ans1_compact) and huffman.cu (the warp scan of
+// huffman_encode).
 //
 // The partition replaces the body that kanzi_tpu/ops/ans_pallas.py
 // _compact_kernel (:480) and _compact2_kernel (:487) share, _compact_body

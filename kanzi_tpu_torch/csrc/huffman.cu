@@ -13,6 +13,7 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "compact.cuh"
 #include "hist.cuh"
 #include "stage.cuh"
 
@@ -47,87 +48,156 @@ huffman_hist_kernel(const uint8_t* __restrict__ chunks, int32_t* __restrict__ hi
 //
 // Replaces kanzi_tpu/ops/huffman_pallas.py _hscan_fused_kernel (:37) and the
 // stable partition that follows it, ans_pallas.py _compact_kernel (:480,
-// called at huffman_pallas.py:145).  One thread per (chunk, stream): 4
-// threads per chunk, 32 chunks per 128-thread CTA, each chunk's 256
-// len << 12 | code entries in shared memory (16 KiB per CTA).  A thread walks
-// its 4,096 bytes with 16-byte loads (the next one in flight while the
-// current one is coded), shifts each code into a 32-bit accumulator and
-// stores a 16-bit word whenever 16 bits are ready, eight words per 16-byte
-// store.  Its words land in order, so the TPU's compaction has nothing left
-// to do; the row is zero-filled past its last word.  Bound on this card: the
-// serial dependence of each stream (a 4 MiB block gives only 1,024 threads),
-// not bytes.  A code is masked to its length, so every table entry gives a
-// defined result: the plain version packs the same bits.
+// called at huffman_pallas.py:145).  The TPU kernel ran each stream's chain
+// of shifts in lock-step over 128 chunks in lanes; here no chain is left.
+// A code's bit position in its stream is the sum of the lengths before it,
+// so a stream is cut into 128 runs of 32 symbols that are packed side by
+// side once their offsets are known.  Bound on this card: bytes, 4 MiB in
+// and 8 MiB out a 4 MiB block (0.0038 ms at 3.35 TB/s); the work a symbol
+// is two shared-table lookups and a few integer operations.  The design:
+//   - A CTA of 512 threads a chunk, four warps a stream, thread l of
+//     stream j on its symbols [32 l, 32 l + 32): 256 CTAs a block, about
+//     two an SM.  A thread's 32 bytes are two 16-byte loads, issued first
+//     and held in registers for both passes.  The chunk's 256 entries go
+//     into shared memory as len << 16 | code masked to len, so any table
+//     entry gives a defined result (the plain version packs the same bits).
+//   - Pass 1: a thread sums its 32 lengths; an exclusive scan over the
+//     warp (warp_incl_scan, compact.cuh) and the totals of the stream's
+//     warps before it give its bit offset o, and the four warps' totals
+//     the stream's T.
+//   - Pass 2: a thread shifts its codes into a 64-bit buffer that starts
+//     with o & 31 zero bits and writes each 32 bits it completes into the
+//     stream's row in shared memory (4,096 words as 2,048 32-bit pairs,
+//     word 2k the low half: the MSB-first bits 32k .. 32k + 31 swapped
+//     halfwise).  A pair whose bits are all the run's own is stored; the
+//     pair the run starts in (when o & 31 != 0) and the pair it ends in can
+//     hold other runs' bits and are ORed in with atomicOr on the zeroed
+//     row, which is order-free, so the result is deterministic.
+//     T <= 4,096 x 15 bits = 3,840 words, so a row never overflows.
+//   - After one barrier the CTA stores the four rows with coalesced 16-byte
+//     stores, each word from n_words = T >> 4 on zeroed; acc is the word at
+//     n_words shifted down to its nbits = T & 15 bits.
+// Measured beside it (PERF.md section 6), on the card alone: a warp a
+// stream (32 runs of 128 symbols), 0.0166 ms a block; two warps, 0.0113;
+// four, 0.0098, kept: more warps an SM hide the lookups' latency.
 
-constexpr int kEncChunksPerCta = 32;
-constexpr int kEncThreads = 4 * kEncChunksPerCta;
+constexpr int kEncWarps = 4;                  // warps a stream
+constexpr int kEncRuns = 32 * kEncWarps;      // runs a stream, a thread each
+constexpr int kEncThreads = 4 * kEncRuns;
+constexpr int kRun = kStream / kEncRuns;      // symbols a run
+constexpr int kRowPairs = kStream / 2;        // a row's 4,096 words as 32-bit pairs
+
+// a chunk's shared memory (33.1 KiB)
+struct EncodeSmem {
+  alignas(16) uint32_t row[4][kRowPairs];
+  uint32_t ent[256];                          // len << 16 | masked code
+  uint32_t warp_bits[4 * kEncWarps];          // the bits of each warp's runs
+  uint32_t total[4];                          // T of each stream
+};
+
+// MSB-first bits 32p .. 32p + 31 of a stream as pair p of its row
+__device__ __forceinline__ uint32_t as_pair(uint32_t bits) { return __byte_perm(bits, 0u, 0x1032u); }
 
 __global__ void __launch_bounds__(kEncThreads)
 huffman_encode_kernel(const uint8_t* __restrict__ chunks, const int32_t* __restrict__ tbl,
                       int16_t* __restrict__ words, int32_t* __restrict__ n_words,
-                      int32_t* __restrict__ acc_out, int32_t* __restrict__ nbits_out, int n) {
-  __shared__ uint16_t t[kEncChunksPerCta][256];
-  const size_t base = static_cast<size_t>(blockIdx.x) * kEncChunksPerCta;
-  // tbl row r holds symbol 2k in the low half of word k, 2k+1 in the high half
-  for (int i = threadIdx.x; i < kEncChunksPerCta * 128; i += kEncThreads) {
-    const size_t r = base + (i >> 7);
-    const uint32_t w = r < static_cast<size_t>(n) ? static_cast<uint32_t>(tbl[r * 128 + (i & 127)]) : 0u;
-    t[i >> 7][2 * (i & 127)] = static_cast<uint16_t>(w & 0xFFFFu);
-    t[i >> 7][2 * (i & 127) + 1] = static_cast<uint16_t>(w >> 16);
+                      int32_t* __restrict__ acc_out, int32_t* __restrict__ nbits_out) {
+  __shared__ EncodeSmem sh;
+  const int tid = threadIdx.x;
+  const int j = tid / kEncRuns;               // the stream
+  const int l = tid % kEncRuns;               // the run
+  const size_t chunk = blockIdx.x;
+  const uint4* src =
+      reinterpret_cast<const uint4*>(chunks + chunk * kChunk + j * kStream + l * kRun);
+  uint4 b[kRun / 16];
+#pragma unroll
+  for (int i = 0; i < kRun / 16; ++i) b[i] = __ldg(src + i);
+  // tbl word k holds symbol 2k in its low half, 2k + 1 in its high half
+  if (tid < 128) {
+    const uint32_t tw = static_cast<uint32_t>(tbl[chunk * 128 + tid]);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const uint32_t e = (tw >> (16 * h)) & 0xFFFFu;
+      const uint32_t ln = e >> 12;
+      sh.ent[2 * tid + h] = ln << 16 | (e & 0xFFFu & ((1u << ln) - 1u));
+    }
   }
+  uint4* zr = reinterpret_cast<uint4*>(&sh.row[0][0]);
+  for (int q = tid; q < kRowPairs; q += kEncThreads) zr[q] = make_uint4(0u, 0u, 0u, 0u);
   __syncthreads();
-  const int local = threadIdx.x >> 2;
-  const int u = threadIdx.x & 3;
-  const size_t row = base + local;
-  if (row >= static_cast<size_t>(n)) return;
-  const size_t srow = row * 4 + u;
-  const uint4* src = reinterpret_cast<const uint4*>(chunks + row * kChunk + u * kStream);
-  uint4* dst = reinterpret_cast<uint4*>(words + srow * kStream);
-  const uint16_t* tb = t[local];
-  uint32_t acc = 0;
-  uint32_t nb = 0;
-  int nw = 0;
-  uint64_t s0 = 0, s1 = 0;        // words nw & ~7 .. nw & ~7 + 7, little-endian
-  uint4 cur = src[0];
-  for (int i = 0; i < kStream / 16; ++i) {
-    const uint4 nxt = src[i + 1 < kStream / 16 ? i + 1 : i];
-    const uint32_t wd[4] = {cur.x, cur.y, cur.z, cur.w};
+
+  uint32_t bits = 0;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
+  for (int i = 0; i < kRun / 16; ++i) {
+    const uint32_t wd[4] = {b[i].x, b[i].y, b[i].z, b[i].w};
 #pragma unroll
-      for (int b = 0; b < 4; ++b) {
-        const uint32_t e = tb[(wd[j] >> (8 * b)) & 255];
-        const uint32_t ln = e >> 12;
-        const uint32_t code = e & 0xFFFu & ((1u << ln) - 1u);
-        acc = (acc << ln) | code;
-        nb += ln;
-        if (nb >= 16) {
-          nb -= 16;
-          const uint64_t word = (acc >> nb) & 0xFFFFu;
-          acc &= (1u << nb) - 1u;
-          const int k = nw & 7;
-          if (k < 4) s0 |= word << (16 * k);
-          else s1 |= word << (16 * (k - 4));
-          ++nw;
-          if ((nw & 7) == 0) {
-            dst[(nw >> 3) - 1] = make_uint4(static_cast<uint32_t>(s0), static_cast<uint32_t>(s0 >> 32),
-                                            static_cast<uint32_t>(s1), static_cast<uint32_t>(s1 >> 32));
-            s0 = s1 = 0;
-          }
-        }
+    for (int k = 0; k < 16; ++k) bits += sh.ent[(wd[k >> 2] >> (8 * (k & 3))) & 255u] >> 16;
+  }
+  const uint32_t incl = static_cast<uint32_t>(warp_incl_scan(static_cast<int>(bits)));
+  if ((tid & 31) == 31) sh.warp_bits[tid >> 5] = incl;
+  __syncthreads();
+  uint32_t o = incl - bits;                   // the run's bit offset in its stream
+#pragma unroll
+  for (int w = 0; w < kEncWarps - 1; ++w) o += w < (l >> 5) ? sh.warp_bits[j * kEncWarps + w] : 0u;
+  if (tid < 4) {
+    uint32_t t = 0;
+#pragma unroll
+    for (int w = 0; w < kEncWarps; ++w) t += sh.warp_bits[tid * kEncWarps + w];
+    sh.total[tid] = t;
+  }
+
+  uint32_t* row = sh.row[j];
+  const uint32_t p0 = o >> 5;
+  const bool lead = (o & 31u) != 0;           // pair p0 also holds earlier runs' bits
+  uint32_t p = p0;
+  uint32_t nb = o & 31u;                      // bits of pair p in the buffer
+  uint64_t acc = 0;
+#pragma unroll
+  for (int i = 0; i < kRun / 16; ++i) {
+    const uint32_t wd[4] = {b[i].x, b[i].y, b[i].z, b[i].w};
+#pragma unroll
+    for (int k = 0; k < 16; ++k) {
+      const uint32_t e = sh.ent[(wd[k >> 2] >> (8 * (k & 3))) & 255u];
+      const uint32_t ln = e >> 16;
+      acc = (acc << ln) | (e & 0xFFFFu);
+      nb += ln;
+      if (nb >= 32) {
+        nb -= 32;
+        const uint32_t v = as_pair(static_cast<uint32_t>(acc >> nb));
+        if (lead && p == p0) atomicOr(row + p, v);
+        else row[p] = v;
+        ++p;
       }
     }
-    cur = nxt;
   }
-  int k = nw >> 3;
-  if (nw & 7) {
-    dst[k++] = make_uint4(static_cast<uint32_t>(s0), static_cast<uint32_t>(s0 >> 32),
-                          static_cast<uint32_t>(s1), static_cast<uint32_t>(s1 >> 32));
+  if (nb) atomicOr(row + p, as_pair(static_cast<uint32_t>(acc << (32 - nb))));
+  __syncthreads();
+
+  // store the rows: thread t takes the 16-byte pieces t, t + kEncThreads, ...
+  const uint4* rows = reinterpret_cast<const uint4*>(&sh.row[0][0]);
+  for (int q = tid; q < 4 * kRowPairs / 4; q += kEncThreads) {
+    const int r = q / (kRowPairs / 4);
+    const int qi = q % (kRowPairs / 4);
+    const int nw = static_cast<int>(sh.total[r] >> 4);
+    const uint4 v = rows[q];
+    uint32_t c[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int h = 0; h < 4; ++h) {
+      const int keep = nw - (8 * qi + 2 * h);   // words of the pair below n_words
+      c[h] = keep >= 2 ? c[h] : (keep == 1 ? c[h] & 0xFFFFu : 0u);
+    }
+    reinterpret_cast<uint4*>(words + (chunk * 4 + r) * kStream)[qi] =
+        make_uint4(c[0], c[1], c[2], c[3]);
   }
-  for (; k < kStream / 8; ++k) dst[k] = make_uint4(0u, 0u, 0u, 0u);
-  n_words[srow] = nw;
-  acc_out[srow] = static_cast<int32_t>(acc);
-  nbits_out[srow] = static_cast<int32_t>(nb);
+  if (tid < 4) {
+    const uint32_t t = sh.total[tid];
+    const uint32_t nw = t >> 4, nbits = t & 15u;
+    const uint32_t w = (sh.row[tid][nw >> 1] >> (16 * (nw & 1))) & 0xFFFFu;
+    const size_t srow = chunk * 4 + tid;
+    n_words[srow] = static_cast<int32_t>(nw);
+    acc_out[srow] = static_cast<int32_t>(nbits ? w >> (16 - nbits) : 0u);
+    nbits_out[srow] = static_cast<int32_t>(nbits);
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -289,11 +359,10 @@ int kz_huffman_hist(const void* chunks, void* hist, int n, void* stream) {
 int kz_huffman_encode(const void* chunks, const void* tbl, void* words, void* n_words,
                       void* acc, void* nbits, int n, void* stream) {
   if (n > 0) {
-    const int grid = (n + kEncChunksPerCta - 1) / kEncChunksPerCta;
-    huffman_encode_kernel<<<grid, kEncThreads, 0, as_stream(stream)>>>(
+    huffman_encode_kernel<<<n, kEncThreads, 0, as_stream(stream)>>>(
         static_cast<const uint8_t*>(chunks), static_cast<const int32_t*>(tbl),
         static_cast<int16_t*>(words), static_cast<int32_t*>(n_words),
-        static_cast<int32_t*>(acc), static_cast<int32_t*>(nbits), n);
+        static_cast<int32_t*>(acc), static_cast<int32_t*>(nbits));
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -119,6 +119,97 @@ def test_compact_ref_matches_pallas():
     assert np.array_equal(n_emit.numpy(), np.asarray(cnt).sum(axis=1))
 
 
+_NT, _PER = 512, 32          # compact_kernel's threads and positions a thread a tile
+_TILE = _NT * _PER
+
+
+def _compact_tiled(val, flag):
+    """compact_kernel (csrc/ans0.cu) modelled in numpy on words ``val`` (N, C)
+    u16 and ``flag`` (N, C) u8.  A width that is a multiple of 16 runs the
+    tiled path: tiles of 16,384 positions, 32 consecutive ones a thread,
+    each thread's flagged words staged at its exclusive offset after the
+    words carried from the tile before, the tile storing whole groups of 8
+    words and carrying the rest (fewer than 8) to the next, the last tile
+    storing the rest and zeros to the row's end.  Any other width runs
+    compact.cuh's compact_tile: runs of ceil(C / 512) positions a thread, the
+    same offsets, the tail zeroed.  Asserts that every output word is
+    written once.  Returns (payload u16, n_emit)."""
+    n, c = val.shape
+    out = np.zeros((n, c), np.uint16)
+    n_emit = np.zeros(n, np.int64)
+    for r in range(n):
+        written = np.zeros(c, np.int64)
+        if c % 16 or c == 0:
+            per = -(-c // _NT)
+            lo = np.minimum(np.arange(_NT) * per, c)
+            hi = np.minimum(lo + per, c)
+            cnt = np.array([np.count_nonzero(flag[r, a:b]) for a, b in zip(lo, hi)])
+            off = np.cumsum(cnt) - cnt
+            for t in range(_NT):
+                kept = val[r, lo[t]:hi[t]][flag[r, lo[t]:hi[t]] != 0]
+                out[r, off[t]:off[t] + len(kept)] = kept
+                written[off[t]:off[t] + len(kept)] += 1
+            total = int(cnt.sum())
+            out[r, total:] = 0
+            written[total:] += 1
+            n_emit[r] = total
+        else:
+            stage = np.zeros(_TILE + 16, np.uint16)
+            head = done = 0
+            for s in range(0, c, _TILE):
+                fl = np.zeros(_TILE, np.uint8)
+                wd = np.zeros(_TILE, np.uint16)
+                m = min(_TILE, c - s)
+                fl[:m], wd[:m] = flag[r, s:s + m], val[r, s:s + m]
+                runs = fl.reshape(_NT, _PER) != 0
+                cnt = runs.sum(axis=1)
+                off = head + np.cumsum(cnt) - cnt
+                for t in np.flatnonzero(cnt):
+                    stage[off[t]:off[t] + cnt[t]] = wd.reshape(_NT, _PER)[t][runs[t]]
+                avail = head + int(cnt.sum())
+                assert avail + 8 <= len(stage)
+                if s + _TILE >= c:
+                    stage[avail:avail + 8] = 0
+                    for q in range((c - done) // 8):
+                        out[r, done + 8 * q:done + 8 * q + 8] = (
+                            stage[8 * q:8 * q + 8] if 8 * q < avail else 0)
+                        written[done + 8 * q:done + 8 * q + 8] += 1
+                    n_emit[r] = done + avail
+                    break
+                full = avail & ~7
+                out[r, done:done + full] = stage[:full]
+                written[done:done + full] += 1
+                stage[:avail - full] = stage[full:avail].copy()
+                head, done = avail - full, done + full
+                assert done % 8 == 0 and head < 8
+        assert (written == 1).all()
+    return out, n_emit
+
+
+@pytest.mark.parametrize("c", [16384, 40000, 4076, 1])
+@pytest.mark.parametrize("flags", ["all", "none", "random"])
+def test_compact_tiled_matches_ref(c, flags):
+    """The compaction kernel's tiles, per-thread runs, carried count and
+    staged stores equal compact_ref bit for bit: at the main path's 16,384
+    (one tile), at 40,000 (three tiles, the count carried twice), and at
+    4,076 and 1 (the scalar path), with every flag set, none set, and random
+    flags of any nonzero value."""
+    rng = np.random.default_rng(c)
+    n = 3
+    val = rng.integers(0, 65536, (n, c)).astype(np.uint16)
+    if flags == "all":
+        flag = np.ones((n, c), np.uint8)
+    elif flags == "none":
+        flag = np.zeros((n, c), np.uint8)
+    else:
+        flag = np.where(rng.random((n, c)) < 0.4,
+                        rng.choice([1, 7, 128, 255], (n, c)), 0).astype(np.uint8)
+    got = _compact_tiled(val, flag)
+    payload, n_emit = A.compact_ref(_t(val.view(np.int16)), _t(flag))
+    assert np.array_equal(got[0], payload.numpy().view(np.uint16))
+    assert np.array_equal(got[1], n_emit.numpy())
+
+
 @pytest.fixture(scope="module")
 def decode_case():
     """The four chunks of test_decode_inverts_encode_interpret, encoded by

@@ -179,6 +179,104 @@ def test_encode_streams_ref_any_table():
         assert not words[r, len(w):].any()
 
 
+def _encode_split_runs(chunks, tbl16, lanes):
+    """huffman_encode_kernel's packing (csrc/huffman.cu), modelled in numpy:
+    each stream cut into ``lanes`` runs, each run's lengths summed, an
+    exclusive scan giving each run's bit offset o, then every run packed in
+    lock-step into 32-bit pairs (bits 32p .. 32p + 31, MSB-first, swapped
+    halfwise so that word 2p is the low half) from a 64-bit buffer that
+    starts with o & 31 zero bits: a pair whose bits are all the run's own is
+    stored, the run's first pair (when o & 31 != 0) and its last, partial
+    one are ORed in.  Asserts that no stored pair is written twice or ORed,
+    which is what lets the kernel store it without an atomic.  Returns the
+    wrapper's four outputs as numpy arrays."""
+    n = chunks.shape[0]
+    e = tbl16.astype(np.uint64)
+    ln = e >> 12
+    code = e & 0xFFF & ((np.uint64(1) << ln) - 1)
+    sym = chunks.reshape(4 * n, STREAM).astype(np.int64)
+    src = np.repeat(np.arange(n), 4)[:, None]
+    lens = ln[src, sym].reshape(4 * n, lanes, -1)
+    codes = code[src, sym].reshape(4 * n, lanes, -1)
+    bits = lens.sum(axis=2)
+    total = bits.sum(axis=1).astype(np.int64)
+    o = np.cumsum(bits, axis=1) - bits
+    pairs = np.zeros((4 * n, STREAM // 2), np.uint64)
+    stored = np.zeros(pairs.shape, np.int64)
+    ored = np.zeros(pairs.shape, np.int64)
+    p0 = o >> 5
+    lead = (o & 31) != 0
+    p, nb = p0.copy(), o & 31
+    acc = np.zeros(o.shape, np.uint64)
+    s_idx = np.broadcast_to(np.arange(4 * n)[:, None], o.shape)
+
+    def put(mask, v, atomic):
+        si, pi, vi = s_idx[mask], p[mask], v[mask]
+        if atomic:
+            np.bitwise_or.at(pairs, (si, pi), vi)
+            np.add.at(ored, (si, pi), 1)
+        else:
+            pairs[si, pi] = vi
+            np.add.at(stored, (si, pi), 1)
+
+    def as_pair(v):
+        v &= np.uint64(0xFFFFFFFF)
+        return ((v & np.uint64(0xFFFF)) << np.uint64(16)) | (v >> np.uint64(16))
+
+    for t in range(lens.shape[2]):
+        acc = (acc << lens[:, :, t]) | codes[:, :, t]
+        nb = nb + lens[:, :, t]
+        em = nb >= 32
+        nb = np.where(em, nb - 32, nb)
+        v = as_pair(acc >> nb)
+        atom = em & lead & (p == p0)
+        put(atom, v, True)
+        put(em & ~atom, v, False)
+        p = p + em
+    put(nb > 0, as_pair(acc << (np.uint64(32) - nb)), True)
+    assert stored.max() <= 1 and not (ored[stored > 0]).any()
+    w = np.empty((4 * n, STREAM), np.uint64)
+    w[:, 0::2] = pairs & np.uint64(0xFFFF)
+    w[:, 1::2] = pairs >> np.uint64(16)
+    n_words, nbits = total >> 4, total & 15
+    last = w[np.arange(4 * n), n_words].astype(np.int64)
+    acc_out = np.where(nbits > 0, last >> (16 - nbits), 0)
+    w[np.arange(STREAM)[None, :] >= n_words[:, None]] = 0
+    return w.astype(np.uint16), n_words, acc_out, nbits
+
+
+def _split_runs_case(kind):
+    rng = np.random.default_rng(12)
+    if kind == "edge_rows":
+        chunks = _chunks()
+        return chunks, _tables(chunks)[4].view(np.uint16)
+    chunks = rng.integers(0, 256, (2, CHUNK), dtype=np.uint8)
+    if kind == "any_table":
+        return chunks, rng.integers(0, 1 << 16, (2, 256)).astype(np.uint16)
+    return chunks, ((15 << 12) | rng.integers(0, 1 << 16, (2, 256)) & 0xFFF).astype(np.uint16)
+
+
+@pytest.mark.parametrize("kind,lanes", [("edge_rows", 128), ("any_table", 128),
+                                        ("all_15_bit", 128), ("any_table", 32)])
+def test_encode_split_runs_matches_ref(kind, lanes):
+    """The kernel's packing by runs at bit offsets from a prefix sum equals
+    encode_streams_ref bit for bit: on the edge rows (zipf, one symbol, all
+    256, Fibonacci lengths at the 12-bit limit) with their tables, on random
+    16-bit entries (lengths up to 15 and 0, codes wider than their length),
+    on an all-15-bit table (3,840 words a stream, the most a row holds),
+    at the kernel's 128 runs a stream and at 32."""
+    chunks, tbl16 = _split_runs_case(kind)
+    got = _encode_split_runs(chunks, tbl16, lanes)
+    want = H.encode_streams_ref(_t(chunks), _t(tbl16.view(np.int32)))
+    assert np.array_equal(got[0], want[0].numpy().view(np.uint16))
+    for g, w in zip(got[1:], want[1:]):
+        assert np.array_equal(g, w.numpy())
+    if kind == "all_15_bit":
+        assert (want[1].numpy() == 3840).all()
+    if kind == "edge_rows":
+        assert got[3].any() and (got[3] == 0).any()     # partial and whole last words
+
+
 def _decode_scalar(seg, lens, syms):
     bits = np.unpackbits(np.concatenate([seg, np.zeros(4, np.uint8)]))
     pos = 0
