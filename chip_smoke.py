@@ -10,10 +10,17 @@ Phases, one line each; any failure raises and the exit code is not 0:
      port's native host library (kanzi_tpu_torch/_build, from native/) loaded
   1  build the CUDA kernels from kanzi_tpu_torch/csrc (ans0.cu, ans1.cu,
      huffman.cu, ksort.cu, lz_words.cu, with the headers compact.cuh,
-     hist.cuh, rans.cuh, stage.cuh), one nvcc per source, in parallel
-  2  each kernel against its plain PyTorch version on the card, bit for bit:
+     hist.cuh, rans.cuh, stage.cuh), one nvcc per source, in parallel; the
+     16-byte loads that the two histogram kernels' SASS places before their
+     first shared atomic (cuobjdump -sass)
+  2  the floor of the card-alone times (an empty kernel, queued and timed
+     as the kernels are); each kernel against its plain PyTorch version on
+     the card, bit for bit:
      the order-0 and Huffman kernels on 256 chunks cut from
-     mixed_corpus(16 MiB, seed=7) plus edge rows, timed at 256 x 16 KiB;
+     mixed_corpus(16 MiB, seed=7) plus edge rows (the CPU tests' rows of
+     the normalisation's edges among them: a tied max, a delta past
+     err_thr of each sign, two symbols), timed at 256 x 16 KiB, both
+     histograms also on 256 chunks of one byte;
      ans0_encode_scan also on the CPU tests' division-edge tables (f = 4095
      against states near 2^31, f = 0 for absent symbols) at widths 4,096
      and 4,076, with the reciprocal of csrc/rans.cuh against exact division
@@ -34,7 +41,9 @@ Phases, one line each; any failure raises and the exit code is not 0:
      chunks of that corpus plus two edge chunks (one repeated byte; uniform
      random), ans1_scan (the order-1 lookup and the scan, fused) at the main
      path's full 2^20 steps of their real lanes (its plain version run and
-     timed once, ~100 s), then timed for one chunk and for 32 in one launch,
+     timed once, ~100 s), ans1_compact on its words and on tiles cut from
+     them at nb 1, 2, 64 and 128, M 1 and 256, with every word flagged and
+     none, then ans1_scan timed for one chunk and for 32 in one launch,
      beside the floor of its chain alone (csrc/ans1.cu scan_chain_kernel, SM
      cycles by clock64); the scan's reciprocal against exact division for
      every f < 2048 and every state x < 2^31 (csrc/ans1.cu
@@ -71,9 +80,10 @@ after it.  Then the card line, one JSON line of the kernels (each with its
 bound: the larger of its bytes over 3.35 TB/s and its integer operations
 over 67 T/s), and the result line.
 ``--quick`` stops after phase 2 and prints no result line, for the first
-call after a kernel changes; ``--phase2 ans0,huffman`` (any of ans0,
-huffman, lz_words, ans1, ksort) runs only those groups of phase 2, then
-stops the same way.  ``--profile`` runs phases 0-1, then one
+call after a kernel changes; ``--phase2 ans0,huffman`` (any of floor, ans0,
+huffman, lz_words, ans1, ksort, and ans1_compact: the compaction's part of
+ans1 alone, on the scan kernel's words) runs only those groups of phase 2,
+then stops the same way.  ``--profile`` runs phases 0-1, then one
 level-1 compress of 32 MiB with the LZX parse on the card under
 torch.profiler (device time by kernel family, the card's busy share) and
 once more with each engine stage timed on the host clock around a
@@ -257,6 +267,40 @@ def edge_rows():
                      (rng.zipf(1.4, CHUNK) % 230).astype(np.uint8)])
 
 
+def norm_edge_rows():
+    """The normalisation's edge rows of tests/test_torch_ans_ops.py, made
+    into 16 KiB chunks: a max tied at four bins (the lowest takes the
+    correction); a delta past err_thr of each sign (one left nonzero after
+    the five rounds); exactly two symbols."""
+    import numpy as np
+    tie = np.zeros(256, np.int64)
+    tie[[5, 17, 40, 200, 201]] = [1, 4095, 4096, 4096, 4096]
+    pos = np.zeros(256, np.int64)
+    pos[:250] = 6
+    pos[250:253] = [4961, 4961, 4962]
+    neg = np.zeros(256, np.int64)
+    neg[:200] = 5
+    neg[200:] = (CHUNK - 1000) // 56
+    neg[200:200 + (CHUNK - 1000) % 56] += 1
+    two = np.zeros(256, np.int64)
+    two[[3, 250]] = [5002, 11382]
+    rng = np.random.default_rng(4)
+    return np.stack([rng.permutation(np.repeat(np.arange(256, dtype=np.uint8), h))
+                     for h in (tie, pos, neg, two)])
+
+
+def one_byte_times(rec: dict, name: str, fn, dev) -> None:
+    """``fn`` (a histogram wrapper) on 256 chunks of one byte value, where
+    every lane of a warp counts into one bin: checked bit-equal to its
+    plain version, then timed around the wrapper and on the card alone."""
+    import torch
+    ones = torch.full((256, CHUNK), 0x41, dtype=torch.uint8, device=dev)
+    check(torch.equal(fn(ones), fn(ones.cpu()).to(dev)),
+          f"{name} differs from its plain version on the all-one-byte chunks")
+    rec[name].update(one_byte_ms=time_ms(lambda: fn(ones)),
+                     one_byte_device_ms=device_ms(lambda: fn(ones)))
+
+
 def phase2_ans0(dev, rows) -> dict:
     import numpy as np
     import torch
@@ -264,7 +308,7 @@ def phase2_ans0(dev, rows) -> dict:
     from kanzi_tpu_torch.entropy.utils import normalize_frequencies_batch
     from kanzi_tpu_torch.ops import ans_cuda as A
 
-    chunks = np.concatenate([rows, edge_rows()])
+    chunks = np.concatenate([rows, edge_rows(), norm_edge_rows()])
     x = torch.from_numpy(chunks).to(dev)
     n = x.shape[0]
     rec = {}
@@ -275,7 +319,8 @@ def phase2_ans0(dev, rows) -> dict:
     host = normalize_frequencies_batch(hist, CHUNK, 4096)
     check(torch.equal(freq, freq_r), "hist_norm differs from its plain version")
     check(np.array_equal(freq.cpu().numpy(), host), "hist_norm differs from the host")
-    rec["ans0_hist_norm"] = {"max_abs_err": max_abs_err([freq], [freq_r])}
+    rec["ans0_hist_norm"] = {"max_abs_err": max_abs_err([freq], [freq_r]),
+                             "edge_cases": ["edge_rows", "norm_edge_rows"]}
 
     cum, tables = A.make_tables(freq)
     check(bool((freq == 0).any()), "no phase-2 table has an f = 0 entry (an absent symbol)")
@@ -336,6 +381,7 @@ def phase2_ans0(dev, rows) -> dict:
     e = xm.numel()
     timed(rec, "ans0_hist_norm", lambda: A.hist_norm(xm), lambda: A.hist_norm_ref(xm),
           xm, e)
+    one_byte_times(rec, "ans0_hist_norm", A.hist_norm, dev)
     r = timed(rec, "ans0_encode_scan", lambda: A.encode_scan(xm, tm),
               lambda: A.encode_scan_ref(xm, tm), (xm, tm), e)
     per_step(r, lambda: A.encode_scan(xm, tm))
@@ -453,7 +499,7 @@ def phase2_huffman(dev, rows) -> dict:
     from kanzi_tpu_torch.ops import huffman_block as HB
     from kanzi_tpu_torch.ops import huffman_cuda as H
 
-    chunks = np.concatenate([rows, huffman_edge_rows()])
+    chunks = np.concatenate([rows, norm_edge_rows(), huffman_edge_rows()])
     x = torch.from_numpy(chunks).to(dev)
     n = x.shape[0]
     rec = {}
@@ -463,7 +509,8 @@ def phase2_huffman(dev, rows) -> dict:
     check(torch.equal(hist, hist_r), "huffman_hist differs from its plain version")
     hists = np.stack([np.bincount(r, minlength=256) for r in chunks]).astype(np.int64)
     check(np.array_equal(hist.cpu().numpy(), hists), "huffman_hist differs from bincount")
-    rec["huffman_hist"] = {"max_abs_err": max_abs_err([hist], [hist_r])}
+    rec["huffman_hist"] = {"max_abs_err": max_abs_err([hist], [hist_r]),
+                           "edge_cases": ["norm_edge_rows", "huffman_edge_rows"]}
 
     sizes, codes, nsym = build_tables_batch(hists)
     check(sizes[-1].max() == 12 and nsym[-3] == 1 and nsym[-2] == 256,
@@ -525,6 +572,7 @@ def phase2_huffman(dev, rows) -> dict:
     counts = torch.zeros((m, 256), dtype=torch.int64, device=dev)
     timed(rec, "huffman_hist", lambda: H.hist(xm), lambda: H.hist_ref(xm), xm, e,
           library=lambda: counts.zero_().scatter_add_(1, idx, ones))
+    one_byte_times(rec, "huffman_hist", H.hist, dev)
     timed(rec, "huffman_encode", lambda: H.encode_streams(xm, tm),
           lambda: H.encode_streams_ref(xm, tm), (xm, tm), e)
     r = timed(rec, "huffman_decode", lambda: H.decode_chunks(pm, bm, am, qm),
@@ -746,17 +794,11 @@ def phase2_ans1(dev, data: bytes) -> dict:
                         **recip_check(dev, A1.LOG_RANGE1)}
     del sc_r
 
-    e = sc[0].view(n * (BLOCK // CHUNK), 128, 128)
-    cp = A1.compact(e)
-    cp_r = A1.compact_ref(e)
-    check(all(torch.equal(u, v) for u, v in zip(cp, cp_r)),
-          "ans1_compact differs from its plain version")
-    rec["ans1_compact"] = {"max_abs_err": max_abs_err(cp, cp_r)}
+    rec.update(phase2_ans1_compact(sc[0].view(n * (BLOCK // CHUNK), 128, 128)))
 
-    # times at one main-path launch, one 4 MiB chunk, but the scan's at the
-    # six chunks of its one plain run (a launch of one chunk takes as long)
+    # times at one main-path launch: the scan's at the six chunks of its one
+    # plain run (a launch of one chunk takes as long)
     x1, p1 = x[:1], packed[:1]
-    e1 = e[:BLOCK // CHUNK]
     r = rec["ans1_scan"]
     r.update(ms=time_ms(lambda: A1.scan_chunks(x, packed)),
              device_ms=device_ms(lambda: A1.scan_chunks(x, packed), reps=3), library_ms=None,
@@ -772,10 +814,110 @@ def phase2_ans1(dev, data: bytes) -> dict:
              **scan_chain(dev, lk_r[0, :16].contiguous(), q))
     r["cycles_per_step"] = r["ms_1_chunk"] * 1e-3 * clock * 1e6 / q
     r["floor_ms"] = q * r["chain_cycles_per_step"] / (clock * 1e3)
-    timed(rec, "ans1_compact", lambda: A1.compact(e1), lambda: A1.compact_ref(e1),
+    return rec
+
+
+def phase2_ans1_compact(e) -> dict:
+    """ans1_compact against its plain version on ``e`` (T, 128, 128), the
+    order-1 scan's words of T / 256 chunks; then on the edge inputs, cut
+    from ``e``: nb 1, 2, 64 and 128 at M = 1 and 256 tiles, each with the
+    scan's flags, every word flagged and none; timed at one main-path
+    launch, one 4 MiB chunk (256 tiles of nb = 128)."""
+    import torch
+
+    from kanzi_tpu_torch.ops import ans1_cuda as A1
+
+    cp = A1.compact(e)
+    cp_r = A1.compact_ref(e)
+    check(all(torch.equal(u, v) for u, v in zip(cp, cp_r)),
+          "ans1_compact differs from its plain version")
+    rec = {"max_abs_err": max_abs_err(cp, cp_r), "edge_cases": []}
+    flat = e.reshape(-1)
+    for nb in (1, 2, 64, 128):
+        for m in (1, 256):
+            base = flat[:m * nb * 128].view(m, nb, 128)
+            for label, ee in (("the scan's flags", base), ("all flagged", base | (1 << 16)),
+                              ("none flagged", base & 0xFFFF)):
+                got, want = A1.compact(ee), A1.compact_ref(ee)
+                check(all(torch.equal(u, v) for u, v in zip(got, want)),
+                      f"ans1_compact differs from its plain version at nb {nb}, M {m}, {label}")
+                rec["max_abs_err"] = max(rec["max_abs_err"], max_abs_err(got, want))
+            rec["edge_cases"].append(f"nb {nb} M {m}")
+    e1 = e[:BLOCK // CHUNK]
+    out = {"ans1_compact": rec}
+    timed(out, "ans1_compact", lambda: A1.compact(e1), lambda: A1.compact_ref(e1),
           e1, e1.numel(), library=lambda: (torch.masked_select(e1 & 0xFFFF, e1 >= 1 << 16),
                                            (e1 >> 16).sum(2)))
-    return rec
+    return out
+
+
+def phase2_ans1_compact_alone(dev, data: bytes) -> dict:
+    """phase2_ans1_compact on the scan kernel's words of two 4 MiB chunks of
+    the corpus, without the plain order-1 scan's ~100 s (the "ans1" group
+    holds the scan to it)."""
+    import numpy as np
+    import torch
+
+    from kanzi_tpu_torch.ops import ans1_cuda as A1
+    from kanzi_tpu_torch.ops.ans_block import order1_tables
+
+    chunks = np.frombuffer(data[:2 * BLOCK], np.uint8).reshape(2, BLOCK)
+    freq, cum = order1_tables(chunks)
+    packed = A1.pack_tables(torch.from_numpy(freq).to(dev), torch.from_numpy(cum).to(dev))
+    emit, _ = A1.scan_chunks(torch.from_numpy(chunks).to(dev), packed)
+    return phase2_ans1_compact(emit.view(-1, 128, 128))
+
+
+def card_floor(dev) -> dict:
+    """The floor of the card-alone times: an empty kernel (csrc/ans1.cu
+    empty_kernel, on no codec path, no launch count) queued and timed by
+    device_ms as every kernel is, at 256 CTAs of 256 threads (the
+    histograms' grid) and of 512 (the compactions')."""
+    import torch
+
+    from kanzi_tpu_torch.utils import cuda_build
+
+    lib = cuda_build.load()
+    s = torch.cuda.current_stream(dev).cuda_stream
+    out = {}
+    for threads in (256, 512):
+        def run():
+            err = lib.kz_empty(256, threads, s)
+            check(err == 0, f"empty kernel: launch failed, cudaError {err}")
+        out[f"256 x {threads}"] = device_ms(run)
+    return out
+
+
+def sass_loads_before_atomics(names=("hist_norm_kernel", "huffman_hist_kernel")) -> dict:
+    """For each kernel of ``names``, the 16-byte global loads (LDG ... 128)
+    that its SASS, as cuobjdump -sass prints the built library, places
+    before its first shared-memory atomic (ATOMS): chunk_hist's four loads
+    all in flight show as 4."""
+    import glob
+    import re
+    import shutil
+
+    from kanzi_tpu_torch.utils import cuda_build
+
+    so = max(glob.glob(os.path.join(cuda_build.BUILD_DIR, "libkanzi_torch_*.so")),
+             key=os.path.getmtime)
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", so], capture_output=True, text=True,
+                          check=True).stdout
+    out, fn, seen = {}, None, True
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = next((k for k in names if k in line), None)
+            seen = fn is None
+            if fn:
+                out[fn] = 0
+        elif not seen:
+            if re.search(r"\bATOMS\b", line):
+                seen = True
+            elif "LDG" in line and ".128" in line:
+                out[fn] += 1
+    check(set(out) == set(names), f"cuobjdump -sass shows {sorted(out)}, not {list(names)}")
+    return out
 
 
 def ksort_operands(dev, b: int, n: int, nops: int, seed: int) -> list:
@@ -869,7 +1011,9 @@ def phase2_ksort(dev) -> dict:
     return rec
 
 
-PHASE2_GROUPS = ("ans0", "huffman", "lz_words", "ans1", "ksort")
+PHASE2_GROUPS = ("floor", "ans0", "huffman", "lz_words", "ans1", "ksort")
+# groups that --phase2 may also name: a part of another group
+PHASE2_PARTS = ("ans1_compact",)
 
 
 def phase2_kernels(dev, data: bytes, groups=PHASE2_GROUPS) -> dict:
@@ -877,10 +1021,12 @@ def phase2_kernels(dev, data: bytes, groups=PHASE2_GROUPS) -> dict:
     rows = mixed_corpus(16 << 20, seed=7).reshape(-1, CHUNK)[::4]      # 256
     run = {"ans0": lambda: phase2_ans0(dev, rows), "huffman": lambda: phase2_huffman(dev, rows),
            "lz_words": lambda: phase2_lz_words(dev, data), "ans1": lambda: phase2_ans1(dev, data),
-           "ksort": lambda: phase2_ksort(dev)}
+           "ksort": lambda: phase2_ksort(dev),
+           "ans1_compact": lambda: phase2_ans1_compact_alone(dev, data)}
     out = {}
     for g in groups:
-        out.update(run[g]())
+        if g != "floor":
+            out.update(run[g]())
     return out
 
 
@@ -1115,8 +1261,8 @@ def main() -> int:
                          f"{', '.join(PHASE2_GROUPS)}), then stop")
     args = ap.parse_args()
     groups = PHASE2_GROUPS if args.phase2 is None else tuple(args.phase2.split(","))
-    if not set(groups) <= set(PHASE2_GROUPS):
-        ap.error(f"--phase2: groups are {', '.join(PHASE2_GROUPS)}")
+    if not set(groups) <= set(PHASE2_GROUPS + PHASE2_PARTS):
+        ap.error(f"--phase2: groups are {', '.join(PHASE2_GROUPS + PHASE2_PARTS)}")
 
     import torch
     if not torch.cuda.is_available():
@@ -1141,6 +1287,9 @@ def main() -> int:
     for line in cuda_build.build_log.splitlines():
         if "Function properties" in line or "registers" in line or "entry function" in line:
             print("phase 1:   " + line.strip())
+    for name, n in sass_loads_before_atomics().items():
+        print(f"phase 1: {name}: {n} 16-byte global loads before its first shared atomic "
+              f"(cuobjdump -sass)")
 
     t = time.perf_counter()
     data = mixed_corpus(64 << 20, seed=12).tobytes()
@@ -1150,6 +1299,10 @@ def main() -> int:
         print(json.dumps({"level1_profile": profile_level1(data[:32 << 20], dev)}))
         return 0
     t = time.perf_counter()
+    if "floor" in groups:
+        print("phase 2: the floor of the card-alone times, an empty kernel queued as the "
+              "kernels are: " + ", ".join(f"{v:.4f} ms at {k} threads"
+                                          for k, v in card_floor(dev).items()))
     kern = phase2_kernels(dev, data, groups)
     for name, r in kern.items():
         lib = "" if r["library_ms"] is None else f", library call {r['library_ms']:.4f} ms"
@@ -1178,10 +1331,17 @@ def main() -> int:
                   f"{r['cycles_per_step_load_clock']:.1f} at the {r['sm_clock_load_mhz']:.0f} "
                   f"MHz read under its load; bit-equal to its plain version on "
                   f"{', '.join(r[cases])}")
-    for name in ("huffman_encode", "ans0_compact"):
+    for name in ("huffman_encode", "ans0_compact", "ans1_compact", "ans0_hist_norm",
+                 "huffman_hist"):
         if name in kern:
             print(f"phase 2: {name}: bit-equal to its plain version also on "
                   f"{', '.join(kern[name]['edge_cases'])}")
+    for name in ("ans0_hist_norm", "huffman_hist"):
+        if name in kern:
+            r = kern[name]
+            print(f"phase 2: {name} on 256 chunks of one byte: {r['one_byte_ms']:.4f} ms "
+                  f"({r['one_byte_device_ms']:.4f} on the card alone), against the corpus's "
+                  f"{r['ms']:.4f} ({r['device_ms']:.4f})")
     if "ans0_encode_scan" in kern:
         r = kern["ans0_encode_scan"]
         print(f"phase 2: ans0_encode_scan: the chain alone (scan_chain, clock64) "
@@ -1259,6 +1419,7 @@ def main() -> int:
         for key in ("device_ms", "ms_1_chunk", "ms_32_chunks", "cycles_per_step",
                     "cycles_per_step_card", "chain_cycles_per_step",
                     "floor_ms", "recip_pairs", "recip_mismatches", "recip", "sm_clock_load_mhz",
+                    "one_byte_ms", "one_byte_device_ms",
                     "cycles_per_step_load_clock", "corrupt_cases",
                     "edge_cases", "passes", "pass_ms", "at"):
             if key in kern[name]:

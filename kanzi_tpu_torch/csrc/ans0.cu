@@ -25,91 +25,115 @@ constexpr uint32_t kScale = 1u << kLogRange;
 constexpr uint32_t kAnsTop = 1u << 15;
 
 // ---------------------------------------------------------------------------
-// block-wide helpers (blockDim.x == NT, a multiple of 32); the prefix sum,
-// block_excl_scan, is in compact.cuh
-// ---------------------------------------------------------------------------
-
-template <int NT>
-__device__ int block_max(int v, int* smem) {
-  constexpr int kWarps = NT / 32;
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = max(v, __shfl_xor_sync(kFull, v, o));
-  if ((threadIdx.x & 31) == 0) smem[threadIdx.x >> 5] = v;
-  __syncthreads();
-  int r = smem[0];
-#pragma unroll
-  for (int i = 1; i < kWarps; ++i) r = max(r, smem[i]);
-  __syncthreads();
-  return r;
-}
-
-template <int NT>
-__device__ int block_min(int v, int* smem) {
-  return -block_max<NT>(-v, smem);
-}
-
-// ---------------------------------------------------------------------------
 // kernel 1: per-chunk histogram + exact frequency normalisation
 // ---------------------------------------------------------------------------
 //
 // Replaces kanzi_tpu/ops/ans_pallas.py _hist16 (:278, an XLA nibble one-hot
 // einsum) and _norm_kernel (:342, the VMEM port of _normalize_freqs_jax :290).
-// One CTA of 256 threads per full 16 KiB chunk; thread k owns symbol k.
-// The histogram is chunk_hist (hist.cuh, shared with huffman_hist); bound on
-// this card and its design are described there.  Then the normalisation as
-// block scans/reductions over the 256 threads: the first-max tie rule
-// (lowest index) and exactly five bounded error-spreading rounds in symbol
-// order, never a loop until done.  Valid only for rows that sum to 2^14; the
-// tail chunk stays on the host.
+// One CTA of kHistThreads threads per full 16 KiB chunk.  The histogram is
+// chunk_hist (hist.cuh, shared with huffman_hist); bound on this card and its
+// design are described there.  Then one warp normalises the 256 counts and
+// the other warps exit: lane l holds bins [8 l, 8 l + 8) in registers, so
+// index order is lane order, then register order.  The symbol count, the
+// scaled sum, the max and the first index of the max are warp reductions
+// (__reduce_*_sync); each of the exactly five bounded error-spreading
+// rounds moves the first d eligible symbols in index order, their ranks a
+// warp scan of the lanes' counts plus the rank inside the lane.  No block
+// barrier follows the counting but the one that hands the counts to the
+// warp.  Measured on an H100 80GB HBM3 at 700 W (PERF.md section 6), on
+// the card alone at 256 chunks: 0.0049-0.0050 ms, of which the counting
+// (huffman_hist's time) is 0.0042-0.0043 and the launch floor (an empty
+// kernel) 0.0021; the normalisation by block scans over 256 threads that
+// this warp replaced took 0.0065-0.0066 in the same call.  Valid only for
+// rows that sum to 2^14; the tail chunk stays on the host.
 
-__global__ void __launch_bounds__(kHistThreads)
-hist_norm_kernel(const uint8_t* __restrict__ chunks, int32_t* __restrict__ freq) {
-  __shared__ int wh[kHistThreads / 32][256];
-  __shared__ int red[kHistThreads / 32 + 1];
-  const int k = threadIdx.x;
-  const size_t row = blockIdx.x;
-  const int h = chunk_hist(chunks + row * kChunk, wh);
+constexpr int kNormPer = 256 / 32;           // bins a lane
 
-  const bool nz = h > 0;
-  int scaled = 0;
-  if (nz) {
-    const int sf = h * static_cast<int>(kScale);  // <= 2^26
-    scaled = sf <= kChunk ? 1 : (sf + (kChunk >> 1)) >> 14;
+// The normalisation of the counts hs[0, 256) (shared memory, 16-byte
+// aligned) into out[0, 256), by the 32 lanes of one warp: the first-max
+// tie rule (lowest index) and exactly five rounds in symbol order, never a
+// loop until done.
+__device__ __forceinline__ void norm_warp(const int* hs, int32_t* __restrict__ out) {
+  const int l = threadIdx.x & 31;
+  const int base = kNormPer * l;
+  const int4 lo = reinterpret_cast<const int4*>(hs)[2 * l];
+  const int4 hi = reinterpret_cast<const int4*>(hs)[2 * l + 1];
+  const int h[kNormPer] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
+  int f[kNormPer];
+  uint32_t nz = 0;
+  int sum = 0, mx = 0;
+#pragma unroll
+  for (int i = 0; i < kNormPer; ++i) {
+    const int sf = h[i] * static_cast<int>(kScale);  // <= 2^26
+    f[i] = h[i] == 0 ? 0 : (sf <= kChunk ? 1 : (sf + (kChunk >> 1)) >> 14);
+    nz |= static_cast<uint32_t>(h[i] > 0) << i;
+    sum += f[i];
+    mx = max(mx, f[i]);
   }
-  int asize, sum_scaled;
-  block_excl_scan<kHistThreads>(nz ? 1 : 0, red, &asize);
-  block_excl_scan<kHistThreads>(scaled, red, &sum_scaled);
-  const int mval = block_max<kHistThreads>(scaled, red);
-  const int imax = block_min<kHistThreads>(scaled == mval ? k : 4096, red);
-  const bool is_max = k == imax;
+  const int asize = __reduce_add_sync(kFull, __popc(nz));
+  const int sum_scaled = __reduce_add_sync(kFull, sum);
+  const int mval = __reduce_max_sync(kFull, mx);
+  int first = 256;
+#pragma unroll
+  for (int i = kNormPer - 1; i >= 0; --i) first = f[i] == mval ? base + i : first;
+  const int imax = __reduce_min_sync(kFull, first);
 
-  int f = scaled;
   const bool single = asize == 1;
-  if (single) f = nz ? static_cast<int>(kScale) : 0;
+  if (single) {
+#pragma unroll
+    for (int i = 0; i < kNormPer; ++i) f[i] = (nz >> i) & 1u ? static_cast<int>(kScale) : 0;
+  }
   const bool active = !single && sum_scaled != static_cast<int>(kScale);
   const int delta = sum_scaled - static_cast<int>(kScale);
   const int err_thr = mval >> 4;
   const bool small = active && abs(delta) <= err_thr;
-  if (small && is_max) f -= delta;
   const bool big = active && !small;
-  const bool neg = big && delta < 0;
-  const bool pos = big && delta > 0;
-  if (big && is_max) f += neg ? err_thr : (pos ? -err_thr : 0);
-  int d = neg ? delta + err_thr : (pos ? delta - err_thr : 0);
+  // the max's first move: all of a small delta, or err_thr toward it
+  const int first_move = small ? -delta : (big ? (delta < 0 ? err_thr : -err_thr) : 0);
+#pragma unroll
+  for (int i = 0; i < kNormPer; ++i) f[i] += base + i == imax ? first_move : 0;
+  int d = big ? (delta < 0 ? delta + err_thr : delta - err_thr) : 0;
   const int inc = d > 0 ? -1 : 1;
   d = abs(d);
   bool live = big;
-  for (int round = 0; round < 5; ++round) {
-    const bool elig = nz && f > 2 && live;
-    int tot;
-    const int cnt = block_excl_scan<kHistThreads>(elig ? 1 : 0, red, &tot) + (elig ? 1 : 0);
-    if (elig && cnt <= d) f += inc;
-    const int nadj = min(tot, d);  // the first d eligible symbols moved
+  for (int round = 0; round < 5 && live; ++round) {   // live is the same in every lane
+    uint32_t el = 0;
+#pragma unroll
+    for (int i = 0; i < kNormPer; ++i) el |= static_cast<uint32_t>(((nz >> i) & 1u) && f[i] > 2) << i;
+    const int cnt = __popc(el);
+    const int incl = warp_incl_scan(cnt);
+    const int tot = __shfl_sync(kFull, incl, 31);
+    int rank = incl - cnt;                   // eligible symbols in the lanes before
+#pragma unroll
+    for (int i = 0; i < kNormPer; ++i) {
+      const bool e = (el >> i) & 1u;
+      rank += e;
+      f[i] += e && rank <= d ? inc : 0;      // the first d eligible symbols move
+    }
+    const int nadj = min(tot, d);
     d -= nadj;
-    live = live && d > 0 && nadj > 0;
+    live = d > 0 && nadj > 0;
   }
-  if (big && is_max) f = max(f - d, 1);
-  freq[row * 256 + k] = f;
+  if (big) {
+#pragma unroll
+    for (int i = 0; i < kNormPer; ++i) f[i] = base + i == imax ? max(f[i] - d, 1) : f[i];
+  }
+  int4* dst = reinterpret_cast<int4*>(out + base);
+  dst[0] = make_int4(f[0], f[1], f[2], f[3]);
+  dst[1] = make_int4(f[4], f[5], f[6], f[7]);
+}
+
+__global__ void __launch_bounds__(kHistThreads)
+hist_norm_kernel(const uint8_t* __restrict__ chunks, int32_t* __restrict__ freq) {
+  __shared__ __align__(16) int wh[kHistWarps][256];
+  __shared__ __align__(16) int hs[256];
+  const int k = threadIdx.x;
+  const size_t row = blockIdx.x;
+  const int h = chunk_hist(chunks + row * kChunk, wh);
+  if (k < 256) hs[k] = h;
+  __syncthreads();
+  if (k >= 32) return;
+  norm_warp(hs, freq + row * 256);
 }
 
 // ---------------------------------------------------------------------------
@@ -257,55 +281,43 @@ encode_scan_kernel(const uint8_t* __restrict__ chunks, const int32_t* __restrict
 // Replaces kanzi_tpu/ops/ans_pallas.py _compact2_kernel (:487), which the TPU
 // ran as MXU prefix sums and 0/1 placement matmuls.  Bound on this card:
 // bytes, 3 read and 2 written a position (20 MiB a 4 MiB block, 0.0063 ms
-// at 3.35 TB/s).  The design: a CTA of 512 threads a row walks it in tiles
-// of 16,384 positions, 32 consecutive ones a thread.
-//   - A thread reads its 32 flags and 32 words once, as 2 + 4 16-byte loads
-//     issued together, counts its flags (__vcmpne4, __popc) and takes its
-//     offset from block_excl_scan (compact.cuh).
-//   - It writes its flagged words, in order, into a staging row in shared
-//     memory; after one barrier the CTA stores the staged words with
-//     coalesced 16-byte stores.  A tile stores only whole 16-byte groups;
-//     the fewer than 8 words left over move to the staging row's start and
-//     go out with the next tile, so the running count carries from tile to
-//     tile and every store stays aligned.  The last tile stores the rest,
-//     then zeros to the row's end, in the same 16-byte stores.
-// A width that is no multiple of 16 (rows not 16-byte aligned), or 0, takes
-// the scalar partition of compact.cuh, compact_tile, in the same kernel.
-// Measured (PERF.md section 6), on the card alone: 0.0079 ms a block,
-// 1.25 x its DRAM bound, against 0.0240 for the partition of compact.cuh
-// at 1,024 threads a row.
+// at 3.35 TB/s).  The design: a CTA of 512 threads a row runs compact.cuh's
+// tiled body, compact_staged, over tiles of 16,384 positions, its count
+// carried from tile to tile.  A thread's loader reads its 32 flags and 32
+// words once, as 2 + 4 16-byte loads issued together, and turns the flags
+// into a bit mask four at a time (__vcmpne4, then one multiply gathers the
+// four bits).  A width that is no multiple of 16 (rows not 16-byte
+// aligned), or 0, takes compact.cuh's scalar body, compact_tile, in the
+// same kernel.  Measured on an H100 80GB HBM3 at 700 W (PERF.md section
+// 6): 0.0076 ms a block on the card alone, 1.2 x its DRAM bound, against
+// 0.0240 for compact_tile at 1,024 threads a row.  Sharing the body with
+// ans1_compact costs nothing: a copy of its own, testing the flags byte by
+// byte, took 0.0077 in the same call.
 
 constexpr int kCompactThreads = 512;
-constexpr int kCompactPer = 32;                                // positions a thread a tile
-constexpr int kCompactTile = kCompactThreads * kCompactPer;    // 16,384
 
-// a row's shared memory (32.1 KiB)
-struct CompactSmem {
-  alignas(16) int16_t stage[kCompactTile + 16];   // 7 carried words, a tile, 8 zeros
-  int red[kCompactThreads / 32 + 1];
-};
+// bit i of the result: byte i of x is not 0
+__device__ __forceinline__ uint32_t nonzero_bytes(uint32_t x) {
+  return ((__vcmpne4(x, 0u) & 0x08040201u) * 0x01010101u) >> 24;
+}
 
 __global__ void __launch_bounds__(kCompactThreads)
 compact_kernel(const int16_t* __restrict__ words, const uint8_t* __restrict__ flags,
                int16_t* __restrict__ payload, int32_t* __restrict__ n_emit, int c) {
-  __shared__ CompactSmem sh;
+  __shared__ StagedSmem<kCompactThreads> sh;
   const size_t row = blockIdx.x;
   const int16_t* wv = words + row * c;
   const uint8_t* wf = flags + row * c;
   int16_t* out = payload + row * c;
-  const int tid = threadIdx.x;
   if ((c & 15) || c == 0) {
-    int mine;
     const int total = compact_tile<kCompactThreads>(
         [&](int i) { return wf[i] != 0 ? static_cast<int>(static_cast<uint16_t>(wv[i])) : -1; },
-        c, out, sh.red, &mine);
-    if (tid == 0) n_emit[row] = total;
+        c, out, sh.red);
+    if (threadIdx.x == 0) n_emit[row] = total;
     return;
   }
-  int head = 0;       // carried words at stage[0, head)
-  int done = 0;       // words stored, a multiple of 8
-  for (int s = 0; s < c; s += kCompactTile) {
-    const int lo = s + tid * kCompactPer;
+  auto load = [&](int lo) {
+    Run r;
     uint4 f[2], w[4];
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
@@ -317,40 +329,21 @@ compact_kernel(const int16_t* __restrict__ words, const uint8_t* __restrict__ fl
       w[2 * h + 1] = in ? __ldg(reinterpret_cast<const uint4*>(wv + lo) + 2 * h + 1) : z;
     }
     const uint32_t fw[8] = {f[0].x, f[0].y, f[0].z, f[0].w, f[1].x, f[1].y, f[1].z, f[1].w};
-    const uint32_t ww[16] = {w[0].x, w[0].y, w[0].z, w[0].w, w[1].x, w[1].y, w[1].z, w[1].w,
-                             w[2].x, w[2].y, w[2].z, w[2].w, w[3].x, w[3].y, w[3].z, w[3].w};
-    int cnt = 0;
+    r.mask = 0;
 #pragma unroll
-    for (int k = 0; k < 8; ++k) cnt += __popc(__vcmpne4(fw[k], 0u)) >> 3;
-    int total;
-    int off = head + block_excl_scan<kCompactThreads>(cnt, sh.red, &total);
+    for (int j = 0; j < 8; ++j) r.mask |= nonzero_bytes(fw[j]) << (4 * j);
 #pragma unroll
-    for (int k = 0; k < kCompactPer; ++k) {
-      if ((fw[k >> 2] >> (8 * (k & 3))) & 255u) {
-        sh.stage[off++] = static_cast<int16_t>(ww[k >> 1] >> (16 * (k & 1)));
-      }
+    for (int h = 0; h < 4; ++h) {
+      r.w[4 * h] = w[h].x;
+      r.w[4 * h + 1] = w[h].y;
+      r.w[4 * h + 2] = w[h].z;
+      r.w[4 * h + 3] = w[h].w;
     }
-    const int avail = head + total;
-    const bool last = s + kCompactTile >= c;
-    if (last && tid < 8) sh.stage[avail + tid] = 0;
-    __syncthreads();
-    uint4* dst = reinterpret_cast<uint4*>(out + done);
-    const uint4* st = reinterpret_cast<const uint4*>(sh.stage);
-    if (last) {
-      for (int q = tid; q < (c - done) / 8; q += kCompactThreads) {
-        dst[q] = 8 * q < avail ? st[q] : make_uint4(0u, 0u, 0u, 0u);
-      }
-      if (tid == 0) n_emit[row] = done + avail;
-      break;
-    }
-    const int full = avail & ~7;
-    for (int q = tid; q < full / 8; q += kCompactThreads) dst[q] = st[q];
-    __syncthreads();
-    // the leftover words to the start; full >= 8 keeps source and target apart
-    if (full && tid < avail - full) sh.stage[tid] = sh.stage[full + tid];
-    head = avail - full;
-    done += full;
-  }
+    return r;
+  };
+  int mine;
+  const int total = compact_staged<kCompactThreads, true>(load, c, out, sh, &mine);
+  if (threadIdx.x == 0) n_emit[row] = total;
 }
 
 // ---------------------------------------------------------------------------

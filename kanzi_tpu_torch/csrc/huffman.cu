@@ -31,15 +31,16 @@ constexpr int kSegBytes = 26 * 256;          // a stream's payload segment (6,65
 //
 // Replaces kanzi_tpu/ops/ans_pallas.py _hist16 (:278) as the Huffman encoder
 // calls it (entropy/huffman.py:330): plain counts, no normalisation.  One CTA
-// of 256 threads per chunk; the counting is chunk_hist (hist.cuh), the same
-// code as ans0's hist_norm.
+// of kHistThreads threads per chunk; the counting is chunk_hist (hist.cuh),
+// the same code as ans0's hist_norm, whose bound and design are described
+// there.
 
 __global__ void __launch_bounds__(kHistThreads)
 huffman_hist_kernel(const uint8_t* __restrict__ chunks, int32_t* __restrict__ hist) {
-  __shared__ int wh[kHistThreads / 32][256];
+  __shared__ __align__(16) int wh[kHistWarps][256];
   const size_t row = blockIdx.x;
   const int h = chunk_hist(chunks + row * kChunk, wh);
-  hist[row * 256 + threadIdx.x] = h;
+  if (threadIdx.x < 256) hist[row * 256 + threadIdx.x] = h;
 }
 
 // ---------------------------------------------------------------------------

@@ -59,6 +59,8 @@ _SIGNATURES = {
     "kz_ans1_scan_chain": [_P, _P, _P, _I, _I, _P],
     # counts, lr, stream (the reciprocal's exhaustive check, on no codec path)
     "kz_ans1_recip_check": [_P, _I, _P],
+    # blocks, threads, stream (an empty kernel, the floor of a measurement)
+    "kz_empty": [_I, _I, _P],
     # e, payload, counts, m, nb, stream
     "kz_ans1_compact": [_P, _P, _P, _I, _I, _P],
     # data, nops, nk, b, n, schedule (host int32 rows), rows, stream

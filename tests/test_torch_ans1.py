@@ -166,6 +166,72 @@ def test_compact_ref_matches_pallas(rate):
     assert np.array_equal(got_cnt.numpy(), flag.sum(axis=2))
 
 
+def _compact1_tiled(e):
+    """compact1_kernel (csrc/ans1.cu) modelled in numpy on e (M, nb, 128)
+    int32: a CTA of NT = max(c / 32, 32) threads a tile of c = nb * 128
+    words, thread t on the run [32 t, 32 t + 32) (empty past c), its flags
+    w >> 16 != 0; its offset an exclusive scan of the runs' counts; its
+    kept words staged at that offset, 8 zeros after the tile's count; the
+    tile stored in groups of 8, staged words where 8 q < count, else
+    zeros; block b's count the runs' counts summed by two xor-shuffles
+    (offsets 1 and 2) and stored by lane 4 b.  Asserts that every output
+    word and every count is written once.  Returns (payload u16 (M, nb,
+    128), counts (M, nb))."""
+    m, nb, _ = e.shape
+    c = nb * 128
+    nt = max(c // 32, 32)
+    out = np.zeros((m, c), np.uint16)
+    counts = np.zeros((m, nb), np.int64)
+    for r in range(m):
+        runs = np.zeros(nt * 32, np.uint32)
+        runs[:c] = e[r].reshape(c).view(np.uint32)
+        runs = runs.reshape(nt, 32)
+        fl = (runs >> 16) != 0
+        cnt = fl.sum(axis=1)
+        off = np.cumsum(cnt) - cnt
+        total = int(cnt.sum())
+        stage = np.zeros(nt * 32 + 16, np.uint16)
+        for t in np.flatnonzero(cnt):
+            stage[off[t]:off[t] + cnt[t]] = runs[t][fl[t]] & 0xFFFF
+        stage[total:total + 8] = 0
+        written = np.zeros(c, np.int64)
+        for q in range(c // 8):
+            out[r, 8 * q:8 * q + 8] = stage[8 * q:8 * q + 8] if 8 * q < total else 0
+            written[8 * q:8 * q + 8] += 1
+        lanes = np.arange(nt)
+        s1 = cnt + cnt[lanes ^ 1]
+        s2 = s1 + s1[lanes ^ 2]
+        stored = np.zeros(nb, np.int64)
+        for t in lanes[(lanes % 4 == 0) & (lanes * 32 < c)]:
+            counts[r, t // 4] = s2[t]
+            stored[t // 4] += 1
+        assert (written == 1).all() and (stored == 1).all()
+    return out.reshape(m, nb, 128), counts
+
+
+@pytest.mark.parametrize("nb", [1, 2, 64, 128])
+@pytest.mark.parametrize("rate", [0.0, 0.25, 1.0])
+def test_compact1_tiled_matches_ref(nb, rate):
+    """The order-1 compaction kernel's runs, lane-group block counts, staged
+    tile and zero fill equal compact_ref and kanzi_tpu's _compact bit for
+    bit: at the main path's nb = 128 (a CTA of 512 threads), at 64 (256),
+    and at 2 and 1 (a warp, of which 8 and 4 lanes hold words), with no
+    word flagged, a quarter, and every one."""
+    rng = np.random.default_rng(nb + int(rate * 100))
+    m = 3
+    flag = rng.random((m, nb, 128)) < rate
+    val = rng.integers(0, 65536, (m, nb, 128))
+    e = np.where(flag, (1 << 16) | val, val & rng.integers(0, 2, (m, nb, 128))).astype(np.int32)
+    got_pay, got_cnt = _compact1_tiled(e)
+    pay_r, cnt_r = A.compact_ref(_t(e))
+    assert np.array_equal(got_pay, pay_r.numpy().view(np.uint16))
+    assert np.array_equal(got_cnt, cnt_r.numpy())
+    pay_p, cnt_p = P._compact(jnp.asarray(e))
+    assert np.array_equal(got_pay, np.asarray(pay_p))
+    assert np.array_equal(got_cnt, np.asarray(cnt_p))
+    assert np.array_equal(got_cnt, flag.sum(axis=2))
+
+
 @pytest.mark.parametrize("kind", ["corpus", "edges"])
 def test_entry_points_match_reference(kind):
     chunks = _chunks(kind)

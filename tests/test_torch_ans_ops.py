@@ -92,6 +92,116 @@ def test_hist_norm_ref_matches_jax(reference):
     assert np.all(got.sum(axis=1) == SCALE)
 
 
+def _norm_edge_rows():
+    """Histograms (each summing to 2^14) at the normalisation's edges: a max
+    tied at bins 17, 40, 200 and 201 (the lowest takes the correction);
+    a delta past err_thr of each sign (+125 against 77, whose five rounds
+    move only three symbols a round and leave d = 33; -32 against 4, beside
+    a max tied at six bins); exactly two symbols, rounded up together to a
+    sum of 4,097."""
+    tie = np.zeros(256, np.int64)
+    tie[[5, 17, 40, 200, 201]] = [1, 4095, 4096, 4096, 4096]
+    pos = np.zeros(256, np.int64)
+    pos[:250] = 6
+    pos[250:253] = [4961, 4961, 4962]
+    neg = np.zeros(256, np.int64)
+    neg[:200] = 5
+    neg[200:] = (CHUNK - 1000) // 56
+    neg[200:200 + (CHUNK - 1000) % 56] += 1
+    two = np.zeros(256, np.int64)
+    two[[3, 250]] = [5002, 11382]
+    hists = np.stack([tie, pos, neg, two])
+    rng = np.random.default_rng(4)
+    return hists, np.stack([_chunk_from_hist(h, rng) for h in hists])
+
+
+def _norm_warp(hists):
+    """hist_norm_kernel's normalisation (csrc/ans0.cu norm_warp) modelled in
+    numpy: lane l holds bins [8 l, 8 l + 8) of a row; the symbol count, the
+    scaled sum and the max are sums and maxima of the lanes' own; the first
+    index of the max the least of the lanes' first indices; each of the five
+    rounds ranks a lane's eligible symbols by an exclusive scan of the
+    lanes' counts plus the rank inside the lane, and the rounds stop once a
+    round leaves nothing to move.  Returns (freq (N, 256), the first index
+    of the max, the delta, err_thr, and d after the rounds, per row)."""
+    out, info = [], []
+    for h in hists:
+        h = np.asarray(h, np.int64).reshape(32, 8)         # lane, register
+        nz = h > 0
+        sf = h * SCALE
+        f = np.where(nz, np.where(sf <= CHUNK, 1, (sf + CHUNK // 2) >> 14), 0)
+        asize = int(nz.sum(axis=1).sum())
+        sum_scaled = int(f.sum(axis=1).sum())
+        mval = int(f.max(axis=1).max())
+        first = [8 * lane + int(np.argmax(f[lane] == mval)) if (f[lane] == mval).any()
+                 else 256 for lane in range(32)]
+        imax = min(first)
+        at_max = np.arange(256).reshape(32, 8) == imax
+        single = asize == 1
+        if single:
+            f = np.where(nz, SCALE, 0)
+        active = not single and sum_scaled != SCALE
+        delta = sum_scaled - SCALE
+        err_thr = mval >> 4
+        small = active and abs(delta) <= err_thr
+        big = active and not small
+        f = f + at_max * (-delta if small else (err_thr if delta < 0 else -err_thr) if big
+                          else 0)
+        d = (delta + err_thr if delta < 0 else delta - err_thr) if big else 0
+        inc = -1 if d > 0 else 1
+        d = abs(d)
+        live = big
+        for _ in range(5):
+            if not live:
+                break
+            el = nz & (f > 2)
+            cnt = el.sum(axis=1)
+            incl = np.cumsum(cnt)
+            rank = (incl - cnt)[:, None] + np.cumsum(el, axis=1)
+            f = f + np.where(el & (rank <= d), inc, 0)
+            nadj = min(int(incl[31]), d)
+            d -= nadj
+            live = d > 0 and nadj > 0
+        if big:
+            f = np.where(at_max, np.maximum(f - d, 1), f)
+        out.append(f.reshape(256))
+        info.append((imax, delta, err_thr, d))
+    return np.stack(out).astype(np.int32), info
+
+
+@pytest.mark.parametrize("rows", ["hist_rows", "edge_rows"])
+@pytest.mark.parametrize("reference", ["port", "xla", "numpy"])
+def test_norm_warp_matches_ref(rows, reference):
+    """The one-warp normalisation equals hist_norm_ref, kanzi_tpu's
+    _normalize_freqs_jax and the host's normalize_frequencies_batch bit for
+    bit, on the 32 rows of _hist_rows and on the edge rows."""
+    hists, chunks = _hist_rows() if rows == "hist_rows" else _norm_edge_rows()
+    got, _ = _norm_warp(hists)
+    if reference == "port":
+        want = A.hist_norm_ref(_t(chunks)).numpy()
+    elif reference == "xla":
+        want = np.asarray(P._normalize_freqs_jax(P._hist16(jnp.asarray(chunks)), 14, SCALE))
+    else:
+        want = normalize_frequencies_batch(hists, CHUNK, SCALE)
+    assert np.array_equal(got, want)
+    assert np.all(got.sum(axis=1) == SCALE)
+
+
+def test_norm_edge_rows_reach_their_edges():
+    """Each edge row reaches the edge it is named for, in the model and in
+    the reference's outputs."""
+    hists, _ = _norm_edge_rows()
+    got, info = _norm_warp(hists)
+    (imax0, delta0, thr0, _), (_, delta1, thr1, d1), (imax2, delta2, thr2, _), _ = info
+    assert imax0 == 17 and 0 < delta0 <= thr0 and got[0, 17] == 1023
+    assert got[0, 40] == got[0, 200] == got[0, 201] == 1024
+    assert delta1 > thr1 and d1 == 33
+    assert delta2 < -thr2 and imax2 == 200
+    assert np.count_nonzero(hists[3]) == 2 and got[3, 250] == 2845
+    want = normalize_frequencies_batch(hists, CHUNK, SCALE)
+    assert np.array_equal(got, want)
+
+
 def test_encode_scan_ref_matches_pallas():
     rng = np.random.default_rng(2)
     n, c = 128, 512
@@ -123,11 +233,26 @@ _NT, _PER = 512, 32          # compact_kernel's threads and positions a thread a
 _TILE = _NT * _PER
 
 
+def _run_masks(fl):
+    """The loader's flags (N, 32) u8 -> (N, 32) bool, by its arithmetic: four
+    flag bytes a 32-bit word x, __vcmpne4(x, 0) (0xFF for each nonzero
+    byte), masked by 0x08040201 and multiplied by 0x01010101, whose top
+    byte then holds the four bits."""
+    x = np.ascontiguousarray(fl).view("<u4").astype(np.uint64)
+    ne = np.zeros_like(x)
+    for b in range(4):
+        ne |= np.where((x >> np.uint64(8 * b)) & np.uint64(255), np.uint64(255 << (8 * b)), 0)
+    nib = (((ne & np.uint64(0x08040201)) * np.uint64(0x01010101)) & np.uint64(0xFFFFFFFF)) >> 24
+    mask = (nib << (np.arange(nib.shape[1], dtype=np.uint64) * np.uint64(4))).sum(axis=1)
+    return (mask[:, None] >> np.arange(32, dtype=np.uint64)) & np.uint64(1) != 0
+
+
 def _compact_tiled(val, flag):
     """compact_kernel (csrc/ans0.cu) modelled in numpy on words ``val`` (N, C)
     u16 and ``flag`` (N, C) u8.  A width that is a multiple of 16 runs the
     tiled path: tiles of 16,384 positions, 32 consecutive ones a thread,
-    each thread's flagged words staged at its exclusive offset after the
+    their flags a bit mask (_run_masks), each thread's flagged words
+    staged at its exclusive offset after the
     words carried from the tile before, the tile storing whole groups of 8
     words and carrying the rest (fewer than 8) to the next, the last tile
     storing the rest and zeros to the row's end.  Any other width runs
@@ -161,7 +286,7 @@ def _compact_tiled(val, flag):
                 wd = np.zeros(_TILE, np.uint16)
                 m = min(_TILE, c - s)
                 fl[:m], wd[:m] = flag[r, s:s + m], val[r, s:s + m]
-                runs = fl.reshape(_NT, _PER) != 0
+                runs = _run_masks(fl.reshape(_NT, _PER))
                 cnt = runs.sum(axis=1)
                 off = head + np.cumsum(cnt) - cnt
                 for t in np.flatnonzero(cnt):
