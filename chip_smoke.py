@@ -75,6 +75,27 @@ Phases, one line each; any failure raises and the exit code is not 0:
   9  ksort_rows, the row sort's own entry point (no codec path calls it),
      at the two shapes of phase 2 on fresh operands: rows sorted, operands
      permuted alike
+ 10  the device suffix array (ops/bwt_device.py: torch.sort, cumsum and
+     scatter, no kernel of its own, so no row of the kernels line) against
+     the port's native SA-IS on the six input classes of
+     tests/test_bwt_tpu.py, the corpus's first 4 MiB block and 4 MiB of
+     zeros (the worst case, log2 n rounds); for the two 4 MiB inputs its
+     rounds, its card ms (CUDA events, warm) for the whole call and for the
+     doubling alone, a sort's ms, and the host's SA-IS, BWT assembly and
+     native BWT forward ms; eight 4 MiB blocks one after another and in
+     eight threads at once (as jobs 8 calls it), twice, with the peak
+     allocation
+ 11  the CLI at level 5, ``python -m kanzi_tpu_torch.app -c -l 5 -j 8``
+     (run by runpy in a subprocess, which then prints its launch counts), on
+     the same 64 MiB written to a temporary file: ``--device none``,
+     ``--device cuda``, and ``--device cuda`` under KANZI_TPU_DEVICE_BWT=1
+     write identical .knz files; ``-d --device cuda`` and ``-d --device
+     none`` give back the input; ``-y`` prints the header; each run's MB/s
+     by the CLI's own clock (a card run's start-up timed apart, before it)
+     and each process's wall time;
+     the gated run takes one device SA and one launch of each ANS0 encode
+     kernel a block, the ungated card run no device SA, the host run
+     nothing on the card
 The launch counts are set to 0 just before each of phases 3-9 and read just
 after it.  Then the card line, one JSON line of the kernels (each with its
 bound: the larger of its bytes over 3.35 TB/s and its integer operations
@@ -1176,6 +1197,217 @@ def phase7_level1(data: bytes, dev, kern: dict) -> dict:
             "cpu_engine_s": cpu_s, "launches": launches}
 
 
+def sa_inputs(data: bytes) -> dict:
+    """Phase 10's inputs: the six classes of tests/test_bwt_tpu.py, the
+    corpus's first 4 MiB block and 4 MiB of zeros (log2 n rounds)."""
+    import numpy as np
+
+    from kanzi_tpu_torch.utils.corpus import dna_like, text_like
+    rng = np.random.default_rng(3)
+    return {"text": text_like(80_000), "zeros": np.zeros(4096, np.uint8),
+            "dna": dna_like(50_000),
+            "random": rng.integers(0, 256, 65537).astype(np.uint8),
+            "periodic": np.tile(np.frombuffer(b"abcab", np.uint8), 10_000),
+            "tiny": np.frombuffer(b"banana", np.uint8),
+            "corpus 4 MiB": np.frombuffer(data[:BLOCK], np.uint8),
+            "zeros 4 MiB": np.zeros(BLOCK, np.uint8)}
+
+
+def host_ms(fn, reps: int = 3) -> float:
+    """Median host-clock ms of ``fn`` over ``reps`` runs, after one warm run."""
+    fn()
+    times = []
+    for _ in range(reps):
+        t = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t) * 1e3)
+    return statistics.median(times)
+
+
+def phase10_sa(data: bytes, dev) -> dict:
+    """The device suffix array (ops/bwt_device.py, torch.sort + cumsum +
+    scatter, no kernel of its own) against the port's native SA-IS on every
+    input of sa_inputs; for the two 4 MiB inputs its rounds, its card time
+    (CUDA events, warm, median of 3) around the whole call and around the
+    doubling alone on a buffer already on the card, SA-IS's host time, the
+    host's assembly of the BWT from an SA (what the gated BWT adds to the
+    device SA) and the native BWT forward (SA-IS and assembly, what the gate
+    replaces).  Then eight 4 MiB blocks of the corpus, as the writer's eight
+    pool threads hand them over at jobs 8: one after another, then twice in
+    eight threads at once, each result against SA-IS."""
+    import concurrent.futures as cf
+
+    import numpy as np
+    import torch
+
+    from kanzi_tpu_torch.ops import bwt_device as B
+    from kanzi_tpu_torch.transforms.bwt import BWT
+    from kanzi_tpu_torch.utils.native_transforms import bwt_forward_native, suffix_array_native
+
+    inputs = sa_inputs(data)
+    res = {"inputs": list(inputs)}
+    for name, x in inputs.items():
+        sa = suffix_array_native(x)
+        check(np.array_equal(B.suffix_array_device(x, device=dev), sa),
+              f"phase 10: the device SA of {name} differs from SA-IS")
+        sa = sa.astype(np.int64)
+        if x.size < BLOCK:
+            continue
+        npad = B._bucket(x.size + 1)
+        glob = torch.zeros(npad, dtype=torch.uint8, device=dev)
+        glob[:x.size] = torch.from_numpy(x.copy()).to(dev)
+        _, rounds = B.prefix_doubling(glob, x.size)
+        doubling = time_ms(lambda: B.prefix_doubling(glob, x.size), reps=3)
+        res[name] = {"n": int(x.size), "npad": npad, "rounds": rounds,
+                     "card_ms": time_ms(lambda: B.suffix_array_device(x, device=dev), reps=3),
+                     "doubling_ms": doubling, "ms_per_sort": doubling / (rounds + 1),
+                     "sais_ms": host_ms(lambda: suffix_array_native(x)),
+                     "assemble_ms": host_ms(lambda: BWT()._assemble_forward(x, sa, 8)),
+                     "native_bwt_ms": host_ms(lambda: bwt_forward_native(x, 8))}
+    blocks = [np.frombuffer(data[i * BLOCK:(i + 1) * BLOCK], np.uint8) for i in range(8)]
+    want = [suffix_array_native(b) for b in blocks]
+    t = time.perf_counter()
+    serial = [B.suffix_array_device(b, device=dev) for b in blocks]
+    serial_s = time.perf_counter() - t
+    torch.cuda.reset_peak_memory_stats()
+    with cf.ThreadPoolExecutor(8) as pool:
+        threads_ms = []
+        for _ in range(2):      # the first pass grows the caching allocator
+            t = time.perf_counter()
+            threaded = list(pool.map(lambda b: B.suffix_array_device(b, device=dev), blocks))
+            threads_ms.append((time.perf_counter() - t) * 1e3)
+            check(all(np.array_equal(a, w) for a, w in zip(threaded, want)),
+                  "phase 10: a device SA of the eight blocks in threads differs from SA-IS")
+        peak = torch.cuda.max_memory_allocated()
+        t = time.perf_counter()
+        list(pool.map(suffix_array_native, blocks))
+        sais_threaded_s = time.perf_counter() - t
+    check(all(np.array_equal(a, w) for a, w in zip(serial, want)),
+          "phase 10: a device SA of the eight blocks differs from SA-IS")
+    res["eight_blocks"] = {"serial_ms": serial_s * 1e3, "threads_ms": threads_ms,
+                           "threads_peak_bytes": peak, "sais_threads_ms": sais_threaded_s * 1e3}
+    return res
+
+
+# phase 11 runs the CLI as ``python -m kanzi_tpu_torch.app`` does (runpy), then
+# prints the run's launch counts and device-SA calls on a line of their own;
+# with "warm" first, it starts the card and loads the kernels' library before
+# the CLI runs, and times that start-up
+_CLI_RUN = """
+import json, runpy, sys, time
+warm, sys.argv = sys.argv[1] == "warm", ["kanzi_tpu_torch"] + sys.argv[2:]
+startup_ms = None
+if warm:
+    import torch
+    from kanzi_tpu_torch.utils import cuda_build
+    t = time.perf_counter()
+    torch.zeros(1, device="cuda")
+    torch.cuda.synchronize()
+    cuda_build.load()
+    startup_ms = (time.perf_counter() - t) * 1e3
+code = 0
+try:
+    runpy.run_module("kanzi_tpu_torch.app", run_name="__main__", alter_sys=True)
+except SystemExit as e:
+    code = e.code or 0
+from kanzi_tpu_torch.ops import launch
+print("COUNTS " + json.dumps({"launches": launch.launches, "startup_ms": startup_ms}))
+sys.exit(code)
+"""
+
+
+def run_cli(flags: list, device_bwt: str = "0") -> tuple[str, dict]:
+    """One CLI process from the repo root, warm when it runs on the card;
+    returns its output and counts, with the process's wall ms."""
+    env = dict(os.environ, KANZI_TPU_DEVICE_BWT=device_bwt)
+    warm = "warm" if flags[-2:] == ["--device", "cuda"] else "cold"
+    t = time.perf_counter()
+    res = subprocess.run([sys.executable, "-c", _CLI_RUN, warm, *flags],
+                         cwd=os.path.dirname(os.path.abspath(__file__)), env=env,
+                         capture_output=True, text=True, timeout=600)
+    wall_ms = (time.perf_counter() - t) * 1e3
+    check(res.returncode == 0, f"phase 11: the CLI {flags} failed: {res.stderr[-2000:]}")
+    lines = res.stdout.splitlines()
+    return "\n".join(lines[:-1]), dict(json.loads(lines[-1][len("COUNTS "):]),
+                                       wall_ms=wall_ms)
+
+
+def cli_ms(out: str) -> float:
+    """The ms that the CLI's -v 1 line reports for its one file."""
+    import re
+    m = re.search(r" in (\d+) ms \[", out)
+    check(m is not None, f"phase 11: no time in the CLI's output: {out!r}")
+    return float(m.group(1))
+
+
+def phase11_cli(data: bytes) -> dict:
+    """``python -m kanzi_tpu_torch.app -c -l 5 -j 8`` on ``data`` in a file,
+    three ways (--device none; cuda; cuda with KANZI_TPU_DEVICE_BWT=1): the
+    three .knz files are byte-identical, ``-d`` on the card and on the host
+    gives back the input, ``-y`` prints the header.  The rates are the CLI's
+    own times for its file; a run on the card starts the card and loads the
+    kernels before the CLI's clock starts, and that start-up is timed apart.
+    Each process's counts are its own: the gated run must take one device SA
+    and one launch of each ANS0 encode kernel a block, the run on the card
+    without the gate no device SA."""
+    import shutil
+    import tempfile
+
+    blocks = -(-len(data) // BLOCK)
+    mb = len(data) / 1e6
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+    try:
+        src = os.path.join(tmp, "corpus.bin")
+        with open(src, "wb") as fh:
+            fh.write(data)
+        runs, blobs = {}, {}
+        for name, device, gate in (("none", "none", "0"), ("cuda", "cuda", "0"),
+                                   ("cuda_device_bwt", "cuda", "1")):
+            dst = os.path.join(tmp, name + ".knz")
+            out, counts = run_cli(["-c", "-l", "5", "-j", "8", "-f", "-i", src, "-o", dst,
+                                   "--device", device], gate)
+            with open(dst, "rb") as fh:
+                blobs[name] = fh.read()
+            runs[name] = {"compress_mb_s": mb / (cli_ms(out) / 1e3),
+                          "compress_startup_ms": counts["startup_ms"],
+                          "compress_wall_ms": counts["wall_ms"],
+                          "sa_calls": counts["launches"].get("suffix_array", 0),
+                          "launches": {k: counts["launches"].get(k, 0) for k in ANS0_KERNELS}}
+        check(blobs["none"] == blobs["cuda"] == blobs["cuda_device_bwt"],
+              "phase 11: the three level-5 .knz files differ")
+        for name, device in (("cuda_device_bwt", "cuda"), ("none", "none")):
+            dst = os.path.join(tmp, name + ".out")
+            out, counts = run_cli(["-d", "-j", "8", "-f", "-i",
+                                   os.path.join(tmp, "cuda_device_bwt.knz"), "-o", dst,
+                                   "--device", device])
+            with open(dst, "rb") as fh:
+                check(fh.read() == data, f"phase 11: -d --device {device} differs from the input")
+            runs[name]["decompress_mb_s"] = mb / (cli_ms(out) / 1e3)
+            runs[name]["decompress_startup_ms"] = counts["startup_ms"]
+            runs[name]["decompress_wall_ms"] = counts["wall_ms"]
+            runs[name]["decode_launches"] = counts["launches"].get("ans0_decode", 0)
+        info, _ = run_cli(["-y", "-i", os.path.join(tmp, "cuda_device_bwt.knz")])
+        for want in ("Entropy codec: ANS0", "Transforms: TEXT+UTF+BWT+RANK+ZRLT",
+                     f"Original size: {len(data)} bytes"):
+            check(want in info, f"phase 11: -y does not print {want!r}: {info!r}")
+    finally:
+        shutil.rmtree(tmp)
+    enc = ANS0_KERNELS[:3]
+    gated, card, host = runs["cuda_device_bwt"], runs["cuda"], runs["none"]
+    check(gated["sa_calls"] == blocks and all(gated["launches"][k] == blocks for k in enc),
+          f"phase 11: the gated run is not one device SA and one launch of each ANS0 encode "
+          f"kernel a block: {gated}")
+    check(card["sa_calls"] == 0 and all(card["launches"][k] == blocks for k in enc),
+          f"phase 11: the run on the card without the gate: {card}")
+    check(host["sa_calls"] == 0 and not any(host["launches"].values()),
+          f"phase 11: the host run reached the device: {host}")
+    check(gated["decode_launches"] == blocks and host["decode_launches"] == 0,
+          f"phase 11: ans0_decode launches {gated['decode_launches']}, host "
+          f"{host['decode_launches']}")
+    return {"bytes_in": len(data), "bytes_out": len(blobs["none"]), "blocks": blocks,
+            "runs": runs}
+
+
 def _family(name: str) -> str:
     """Kernel family of a device event, for the level-1 profile."""
     low = name.lower()
@@ -1408,6 +1640,42 @@ def main() -> int:
           f"rows ordered, operands permuted alike; {r['wall_ms']:.2f} ms; launches "
           f"{r['launches']}")
     check(all(v > 0 for v in launches.values()), f"launches {launches}")
+    t = time.perf_counter()
+    r = phase10_sa(data, dev)
+    print(f"phase 10: the device suffix array equals SA-IS on {', '.join(r['inputs'])}")
+    for name in ("corpus 4 MiB", "zeros 4 MiB"):
+        a = r[name]
+        print(f"phase 10: {name} (npad {a['npad']}): {a['rounds']} rounds after the seed; "
+              f"card {a['card_ms']:.4f} ms the whole call, {a['doubling_ms']:.4f} ms the "
+              f"doubling on the card, {a['ms_per_sort']:.4f} ms a sort (seed and rounds); "
+              f"host SA-IS {a['sais_ms']:.4f} ms; the BWT from an SA on the host "
+              f"(_assemble_forward) {a['assemble_ms']:.4f} ms; the native BWT forward "
+              f"(SA-IS and assembly in C++, one thread) {a['native_bwt_ms']:.4f} ms")
+    a = r["eight_blocks"]
+    print(f"phase 10: eight 4 MiB blocks of the corpus: one after another "
+          f"{a['serial_ms']:.4f} ms, in eight threads "
+          f"{', then '.join(f'{v:.4f}' for v in a['threads_ms'])} ms (peak "
+          f"{a['threads_peak_bytes']} B allocated on the card); host SA-IS in eight threads "
+          f"{a['sais_threads_ms']:.4f} ms; {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    r = phase11_cli(data)
+
+    def note(a, way):
+        ms = a[way + "_startup_ms"]
+        return (f" (process wall {a[way + '_wall_ms']:.1f} ms"
+                + ("" if ms is None else f", card start-up before the CLI's clock {ms:.1f} ms")
+                + ")")
+
+    for name, a in r["runs"].items():
+        dec = (f", decompress MB/s {a['decompress_mb_s']:.4f}{note(a, 'decompress')} with "
+               f"ans0_decode launches {a['decode_launches']}" if "decompress_mb_s" in a else "")
+        print(f"phase 11: CLI -l 5 -j 8 --device {name.replace('_device_bwt', '')}"
+              f"{' with KANZI_TPU_DEVICE_BWT=1' if 'bwt' in name else ''}: compress MB/s "
+              f"{a['compress_mb_s']:.4f}{note(a, 'compress')}{dec}; device SA calls "
+              f"{a['sa_calls']}, ANS0 launches {a['launches']}")
+    print(f"phase 11: {r['bytes_in']} B -> {r['bytes_out']} B ({r['blocks']} blocks), the "
+          f"three .knz files identical, -d on the card and on the host give back the input, "
+          f"-y prints the header; {time.perf_counter() - t:.1f} s")
 
     kernels = []
     for name, (src, rep, also) in REPLACES.items():

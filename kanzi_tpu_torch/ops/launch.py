@@ -4,7 +4,8 @@ kernel takes.
 
 ``launches`` maps each kernel's name to the number of times its wrapper
 launched it; a wrapper adds one where it launches and nowhere else, so a run
-can show which kernels its path went through.
+can show which kernels its path went through.  ``suffix_array`` counts the
+calls of ops/bwt_device.py's suffix array, which has no kernel of its own.
 """
 
 from __future__ import annotations

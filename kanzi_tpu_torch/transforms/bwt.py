@@ -13,11 +13,14 @@ Block codec header: mode byte (log2(chunks) << 2 | pIndexSize-1) followed by
 chunks primary indexes of pIndexSize bytes each (big-endian, value-1).
 
 The suffix array comes from the C++ SA-IS kernel; the fallback is a numpy
-prefix-doubling SA (O(n log^2 n) sorts) — the same construction the TPU
-kernel uses (ops/bwt.py).
+prefix-doubling SA (O(n log^2 n) sorts).  Under ``KANZI_TPU_DEVICE_BWT=1``
+a block of at least 64 KiB on a stream with a torch device takes the
+prefix-doubling SA of ops/bwt_device.py on that device instead.
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 
@@ -102,9 +105,7 @@ class BWT:
         chunks = get_bwt_chunks(n)
         # a caller may hand over suffix arrays computed ahead of the
         # writer's workers, keyed by (length, content hash); any correct SA
-        # yields the identical BWT, and a miss just computes locally.
-        # kanzi_tpu's KANZI_TPU_DEVICE_BWT (a suffix array on the device) has
-        # no counterpart here yet: the variable is ignored (ROADMAP M2)
+        # yields the identical BWT, and a miss just computes locally
         sa_map = (self._ctx or {}).get("_bwt_sa_map")
         if sa_map:
             from ..utils.xxhash import xxhash64
@@ -112,6 +113,16 @@ class BWT:
             if sa is not None and sa.size == n:
                 return self._assemble_forward(src, sa.astype(np.int64),
                                               chunks)
+        # the suffix array on the stream's torch device (ops/bwt_device.py),
+        # opt-in with KANZI_TPU_DEVICE_BWT; with no device (the host coders)
+        # the variable is ignored.  Any correct SA yields the identical BWT,
+        # so the wire is unchanged; a failure on the device raises
+        device = (self._ctx or {}).get("_device")
+        if (device is not None and n >= 65536
+                and os.environ.get("KANZI_TPU_DEVICE_BWT", "0") == "1"):
+            from ..ops.bwt_device import suffix_array_device
+            sa = suffix_array_device(src, device=device).astype(np.int64)
+            return self._assemble_forward(src, sa, chunks)
         # leftover thread budget from the encode task (1 when blocks
         # already saturate the cores, more when a lone block has the
         # machine to itself) threads the SA's data-parallel phases

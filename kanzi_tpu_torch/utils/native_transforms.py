@@ -4,6 +4,7 @@ from __future__ import annotations
 
 import ctypes
 import os
+import threading
 
 import numpy as np
 
@@ -11,6 +12,7 @@ from .native import as_u8p, get_lib
 
 _FORCE_PY = bool(os.environ.get("KANZI_TPU_PURE_PY"))
 _SIGS_DONE = False
+_SIGS_LOCK = threading.Lock()
 
 
 def _lib():
@@ -21,55 +23,65 @@ def _lib():
         return None
     global _SIGS_DONE
     if not _SIGS_DONE:
-        c = ctypes
-        u8p = c.POINTER(c.c_uint8)
-        lib.kz_sbrt_forward.restype = None
-        lib.kz_sbrt_forward.argtypes = [u8p, u8p, c.c_int64, c.c_int32]
-        lib.kz_sbrt_inverse.restype = None
-        lib.kz_sbrt_inverse.argtypes = [u8p, u8p, c.c_int64, c.c_int32]
-        lib.kz_srt_forward.restype = c.c_int64
-        lib.kz_srt_forward.argtypes = [u8p, c.c_int64, u8p, c.c_int64]
-        lib.kz_srt_inverse.restype = c.c_int64
-        lib.kz_srt_inverse.argtypes = [u8p, c.c_int64, u8p, c.c_int64]
-        lib.kz_lzx_forward.restype = c.c_int64
-        lib.kz_lzx_forward.argtypes = [u8p, c.c_int64, u8p, c.c_int32, c.c_int32]
-        lib.kz_lzx_inverse.restype = c.c_int64
-        lib.kz_lzx_inverse.argtypes = [u8p, c.c_int64, u8p, c.c_int64]
-        lib.kz_lzp_forward.restype = c.c_int64
-        lib.kz_lzp_forward.argtypes = [u8p, c.c_int64, u8p, c.c_int64]
-        lib.kz_lzp_inverse.restype = c.c_int64
-        lib.kz_lzp_inverse.argtypes = [u8p, c.c_int64, u8p, c.c_int64]
-        if hasattr(lib, "kz_zrlt_forward"):
-            lib.kz_zrlt_forward.restype = c.c_int64
-            lib.kz_zrlt_forward.argtypes = [u8p, c.c_int64, u8p, c.c_int64]
-            lib.kz_zrlt_inverse.restype = c.c_int64
-            lib.kz_zrlt_inverse.argtypes = [u8p, c.c_int64, u8p, c.c_int64]
-        i32p = c.POINTER(c.c_int32)
-        lib.kz_suffix_array.restype = None
-        lib.kz_suffix_array.argtypes = [u8p, i32p, c.c_int64]
-        lib.kz_bwt_forward.restype = c.c_int64
-        lib.kz_bwt_forward.argtypes = [u8p, u8p, c.c_int64, i32p, c.c_int32]
-        lib.kz_bwt_inverse.restype = c.c_int32
-        lib.kz_bwt_inverse.argtypes = [u8p, u8p, c.c_int64, i32p, c.c_int32]
-        lib.kz_bwt_inverse_mt.restype = c.c_int32
-        lib.kz_bwt_inverse_mt.argtypes = [u8p, u8p, c.c_int64, i32p,
-                                          c.c_int32, c.c_int32]
-        if hasattr(lib, "kz_text_set_dict"):
-            lib.kz_text_set_dict.restype = None
-            lib.kz_text_set_dict.argtypes = [u8p, c.c_int64]
-            lib.kz_text_forward.restype = c.c_int64
-            lib.kz_text_forward.argtypes = [u8p, c.c_int64, u8p, c.c_int64,
-                                            c.c_int32, c.c_int64, c.c_int32,
-                                            c.c_int32, i32p]
-            lib.kz_text_inverse.restype = c.c_int64
-            lib.kz_text_inverse.argtypes = [u8p, c.c_int64, u8p, c.c_int64,
-                                            c.c_int32, c.c_int64, c.c_int32,
-                                            c.c_int32]
-            from ..transforms._text_dict import DICT_EN_1024
-            d = np.frombuffer(DICT_EN_1024, dtype=np.uint8).copy()
-            lib.kz_text_set_dict(as_u8p(d), d.size)
-        _SIGS_DONE = True
+        # once, under a lock: the pool's first blocks arrive together, and
+        # kz_text_set_dict rebuilding the dictionary under a running TEXT
+        # forward changes that block's bytes
+        with _SIGS_LOCK:
+            if not _SIGS_DONE:
+                _init_lib(lib)
+                _SIGS_DONE = True
     return lib
+
+
+def _init_lib(lib) -> None:
+    """Declare the signatures and push the TEXT dictionary."""
+    c = ctypes
+    u8p = c.POINTER(c.c_uint8)
+    lib.kz_sbrt_forward.restype = None
+    lib.kz_sbrt_forward.argtypes = [u8p, u8p, c.c_int64, c.c_int32]
+    lib.kz_sbrt_inverse.restype = None
+    lib.kz_sbrt_inverse.argtypes = [u8p, u8p, c.c_int64, c.c_int32]
+    lib.kz_srt_forward.restype = c.c_int64
+    lib.kz_srt_forward.argtypes = [u8p, c.c_int64, u8p, c.c_int64]
+    lib.kz_srt_inverse.restype = c.c_int64
+    lib.kz_srt_inverse.argtypes = [u8p, c.c_int64, u8p, c.c_int64]
+    lib.kz_lzx_forward.restype = c.c_int64
+    lib.kz_lzx_forward.argtypes = [u8p, c.c_int64, u8p, c.c_int32, c.c_int32]
+    lib.kz_lzx_inverse.restype = c.c_int64
+    lib.kz_lzx_inverse.argtypes = [u8p, c.c_int64, u8p, c.c_int64]
+    lib.kz_lzp_forward.restype = c.c_int64
+    lib.kz_lzp_forward.argtypes = [u8p, c.c_int64, u8p, c.c_int64]
+    lib.kz_lzp_inverse.restype = c.c_int64
+    lib.kz_lzp_inverse.argtypes = [u8p, c.c_int64, u8p, c.c_int64]
+    if hasattr(lib, "kz_zrlt_forward"):
+        lib.kz_zrlt_forward.restype = c.c_int64
+        lib.kz_zrlt_forward.argtypes = [u8p, c.c_int64, u8p, c.c_int64]
+        lib.kz_zrlt_inverse.restype = c.c_int64
+        lib.kz_zrlt_inverse.argtypes = [u8p, c.c_int64, u8p, c.c_int64]
+    i32p = c.POINTER(c.c_int32)
+    lib.kz_suffix_array.restype = None
+    lib.kz_suffix_array.argtypes = [u8p, i32p, c.c_int64]
+    lib.kz_bwt_forward.restype = c.c_int64
+    lib.kz_bwt_forward.argtypes = [u8p, u8p, c.c_int64, i32p, c.c_int32]
+    lib.kz_bwt_inverse.restype = c.c_int32
+    lib.kz_bwt_inverse.argtypes = [u8p, u8p, c.c_int64, i32p, c.c_int32]
+    lib.kz_bwt_inverse_mt.restype = c.c_int32
+    lib.kz_bwt_inverse_mt.argtypes = [u8p, u8p, c.c_int64, i32p,
+                                      c.c_int32, c.c_int32]
+    if hasattr(lib, "kz_text_set_dict"):
+        lib.kz_text_set_dict.restype = None
+        lib.kz_text_set_dict.argtypes = [u8p, c.c_int64]
+        lib.kz_text_forward.restype = c.c_int64
+        lib.kz_text_forward.argtypes = [u8p, c.c_int64, u8p, c.c_int64,
+                                        c.c_int32, c.c_int64, c.c_int32,
+                                        c.c_int32, i32p]
+        lib.kz_text_inverse.restype = c.c_int64
+        lib.kz_text_inverse.argtypes = [u8p, c.c_int64, u8p, c.c_int64,
+                                        c.c_int32, c.c_int64, c.c_int32,
+                                        c.c_int32]
+        from ..transforms._text_dict import DICT_EN_1024
+        d = np.frombuffer(DICT_EN_1024, dtype=np.uint8).copy()
+        lib.kz_text_set_dict(as_u8p(d), d.size)
 
 
 def _i32p(arr):

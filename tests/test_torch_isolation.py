@@ -82,13 +82,46 @@ def test_order1_and_ksort_ops_without_jax():
     assert res.stdout.strip() == "ok"
 
 
+_CLI = """
+import runpy, sys
+sys.argv = ["kanzi_tpu_torch"] + sys.argv[1:]
+try:
+    runpy.run_module("kanzi_tpu_torch.app", run_name="__main__", alter_sys=True)
+except SystemExit as e:
+    assert not e.code, e.code
+from kanzi_tpu_torch.ops import launch
+loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "kanzi_tpu"))
+assert not loaded, loaded
+print("ok", launch.launches.get("suffix_array", 0))
+"""
+
+
+def test_cli_level5_device_bwt_without_jax(tmp_path):
+    """The CLI, as ``python -m kanzi_tpu_torch.app`` runs it, compresses at
+    level 5 on device=cpu with the SA gate on and decompresses, in fresh
+    processes that load no jax and no kanzi_tpu module."""
+    from kanzi_tpu_torch.utils.corpus import mixed_corpus
+    src = tmp_path / "in.bin"
+    src.write_bytes(mixed_corpus(100_000, seed=4).tobytes())
+    env = dict(os.environ, KANZI_TPU_DEVICE_BWT="1")
+    runs = [(["-c", "-l", "5", "-i", str(src), "-o", str(tmp_path / "in.knz")], "ok 1"),
+            (["-d", "-i", str(tmp_path / "in.knz"), "-o", str(tmp_path / "out")], "ok 0")]
+    for flags, want in runs:
+        res = subprocess.run([sys.executable, "-c", _CLI, *flags, "-j", "2", "-v", "0",
+                              "--device", "cpu"], cwd=ROOT,
+                             capture_output=True, text=True, timeout=300, env=env)
+        assert res.returncode == 0, res.stderr
+        assert res.stdout.strip() == want
+    assert (tmp_path / "out").read_bytes() == src.read_bytes()
+
+
 def test_no_jax_import_in_package():
     pat = re.compile(r"^\s*(import|from)\s+jax\b", re.M)
     files = [os.path.join(d, f) for d, _, fs in os.walk(PKG) for f in fs
              if f.endswith(".py")]
     assert len(files) >= 8
-    for new in ("ans1_cuda.py", "ksort.py"):
-        assert os.path.join(PKG, "ops", new) in files
+    for new in ("ops/ans1_cuda.py", "ops/ksort.py", "ops/bwt_device.py", "app/__main__.py"):
+        assert os.path.join(PKG, *new.split("/")) in files
     for path in files:
         with open(path) as fh:
             assert not pat.search(fh.read()), path
