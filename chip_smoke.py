@@ -96,10 +96,30 @@ Phases, one line each; any failure raises and the exit code is not 0:
      the gated run takes one device SA and one launch of each ANS0 encode
      kernel a block, the ungated card run no device SA, the host run
      nothing on the card
-The launch counts are set to 0 just before each of phases 3-9 and read just
-after it.  Then the card line, one JSON line of the kernels (each with its
+ 12  the multi-GPU engine (kanzi_tpu_torch/parallel/engine.py) on the same
+     64 MiB: a world of one rank over NCCL (NCCL_SOCKET_IFNAME=lo, no
+     network), where mesh_ans0_compress of the first 4 MiB block equals the
+     host encoder in a fresh writer and decodes back by
+     mesh_ans0_decompress (a flipped payload byte raises); mesh_l5_compress
+     (4 MiB blocks, jobs 8) decodes through the host reader and
+     mesh_decompress, is at most the host stream + 4 bytes a block, its
+     first two blocks equal a gloo world of one rank on the CPU (the plain
+     versions), and takes one device SA and one launch of each ANS0 encode
+     kernel a block, one ans0_decode a block on the mesh decode;
+     mesh_l1_compress decodes on the host, is at most 1.05 x the host
+     parse, its first two blocks equal the CPU world's, and launches
+     lz_words; then two spawned ranks share the card over gloo (the
+     collectives staged through the host) and write the NCCL world's
+     level-5 stream.  Prints the MB/s beside phases 4 and 7, level 5's
+     passes A-C, and each gather's ms a call (the lengths and the payloads
+     apart, a host clock around a synchronize), with the card's name and
+     power limit
+The launch counts are set to 0 just before each of phases 3-9 and each step
+of phase 12 and read just after it; phase 12's counts join the kernels
+line's.  Then the card line, one JSON line of the kernels (each with its
 bound: the larger of its bytes over 3.35 TB/s and its integer operations
 over 67 T/s), and the result line.
+``--mesh`` runs phases 0-1 and 12 only and prints no result line.
 ``--quick`` stops after phase 2 and prints no result line, for the first
 call after a kernel changes; ``--phase2 ans0,huffman`` (any of floor, ans0,
 huffman, lz_words, ans1, ksort, and ans1_compact: the compaction's part of
@@ -1408,6 +1428,227 @@ def phase11_cli(data: bytes) -> dict:
             "runs": runs}
 
 
+MESH_L5_RANK_TIMEOUT = 300
+
+
+def mesh_l5_rank(mesh, size: int, seed: int, jobs: int) -> dict:
+    """One rank of phase 12's step 4 (run by kanzi_tpu_torch.parallel.dryrun
+    in its own process): level 5 of mixed_corpus(size, seed) over the mesh,
+    timed on the rank's host clock around a synchronize; rank 0's stream,
+    and each rank's launch counts."""
+    import torch
+
+    from kanzi_tpu_torch.ops import launch
+    from kanzi_tpu_torch.parallel import engine as E
+    from kanzi_tpu_torch.utils.corpus import mixed_corpus
+
+    data = mixed_corpus(size, seed=seed) if mesh.rank == 0 else None
+    launch.reset_launches()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    wire = E.mesh_l5_compress(mesh, data, block_size=BLOCK, jobs=jobs)
+    torch.cuda.synchronize()
+    return {"wire": wire, "seconds": time.perf_counter() - t, "device": str(mesh.device),
+            "backend": mesh.backend, "launches": dict(launch.launches),
+            "stats": mesh.stats}
+
+
+def gathers(stats: dict) -> dict:
+    """ms a call and bytes a call of each gather in a mesh's stats."""
+    return {k: {"calls": v[1], "ms_per_call": v[0] / v[1] * 1e3,
+                "bytes_per_call": v[2] / v[1]}
+            for k, v in stats.items() if k.endswith(("lengths", "payloads"))}
+
+
+def phase12_mesh(data: bytes) -> dict:
+    """The multi-GPU engine (kanzi_tpu_torch/parallel/engine.py) on the card:
+    a world of one rank over NCCL, a world of one rank over gloo on the CPU
+    (the plain versions) to hold the first two blocks against, and two
+    spawned ranks sharing the card over gloo.  The launch counts are set to
+    0 just before each step's main-path run and read just after it."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from kanzi_tpu_torch.core.bits import BitWriter
+    from kanzi_tpu_torch.core.errors import BitStreamError
+    from kanzi_tpu_torch.entropy.ans import ANSRangeEncoder
+    from kanzi_tpu_torch.io import stream as port
+    from kanzi_tpu_torch.ops import launch
+    from kanzi_tpu_torch.parallel import dryrun
+    from kanzi_tpu_torch.parallel import engine as E
+
+    # no network on the card's machine: the bootstrap rides the loopback
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    torch.cuda.set_device(0)
+    t = time.perf_counter()
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{dryrun.free_port()}",
+                            world_size=1, rank=0)
+    mesh = E.make_mesh(1, device="cuda")
+    cpu_mesh = E.make_mesh(1, device="cpu", group=dist.new_group([0], backend="gloo"))
+    out: dict = {"init_s": time.perf_counter() - t, "mesh": repr(mesh)}
+    mb = len(data) / 1e6
+    blocks = -(-len(data) // BLOCK)
+    arr = np.frombuffer(data, dtype=np.uint8)
+    counts: dict = {}
+
+    def run(name, fn):
+        launch.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        counts[name] = {k: v for k, v in launch.launches.items() if v}
+        return res, time.perf_counter() - t0
+
+    try:
+        # step 1: the ANS0 stage on the first block
+        block = arr[:BLOCK]
+        wire, _ = run("ans0_compress", lambda: E.mesh_ans0_compress(mesh, block))
+        bw = BitWriter()
+        ANSRangeEncoder(bw, 0).encode(block)
+        check(wire == bw.getvalue(),
+              "phase 12: mesh_ans0_compress differs from the host encoder in a fresh writer")
+        got, _ = run("ans0_decompress", lambda: E.mesh_ans0_decompress(mesh, wire, BLOCK))
+        check(np.array_equal(got, block), "phase 12: mesh_ans0_decompress differs from the block")
+        bad = bytearray(wire)
+        bad[len(bad) // 2] ^= 0xFF
+        try:
+            E.mesh_ans0_decompress(mesh, bytes(bad), BLOCK)
+            raised = None
+        except BitStreamError as e:
+            raised = type(e).__name__
+        check(raised == "BitStreamError", "phase 12: a flipped payload byte did not raise")
+        out["ans0"] = {"bytes_in": BLOCK, "bytes_out": len(wire)}
+
+        # step 2: level 5 over the mesh
+        mesh.stats.clear()
+        w5, c5 = run("l5", lambda: E.mesh_l5_compress(mesh, arr, block_size=BLOCK, jobs=8))
+        out["l5_passes_s"] = {k[-1]: v[0] for k, v in mesh.stats.items() if k.startswith("l5")}
+        out["l5_gathers"] = gathers(mesh.stats)
+        lc = counts["l5"]
+        check(all(lc.get(k, 0) == blocks for k in
+                  ("ans0_hist_norm", "ans0_encode_scan", "ans0_compact", "suffix_array")),
+              f"phase 12: level 5 is not one SA and one launch of each ANS0 encode kernel "
+              f"a block: {lc}")
+        t0 = time.perf_counter()
+        got = _decompress(port.CompressedInputStream, w5, 8, device=None)
+        host_d = time.perf_counter() - t0
+        check(got == data, "phase 12: the host reader's decode of the level-5 mesh stream differs")
+        mesh.stats.clear()
+        got, d5 = run("l5_decompress", lambda: E.mesh_decompress(mesh, w5, jobs=8))
+        check(got == data, "phase 12: mesh_decompress differs from the input")
+        check(counts["l5_decompress"].get("ans0_decode", 0) == blocks,
+              f"phase 12: the mesh decode is not one ans0_decode a block: "
+              f"{counts['l5_decompress']}")
+        out["l5_decode_gathers"] = gathers(mesh.stats)
+        ref = _compress(port.CompressedOutputStream, data,
+                        {"transform": "TEXT+UTF+BWT+RANK+ZRLT", "entropy": "ANS0",
+                         "blockSize": BLOCK, "jobs": 8}, device=None)
+        check(len(w5) <= len(ref) + 4 * blocks,
+              f"phase 12: level 5 {len(w5)} B is more than the host stream's {len(ref)} B "
+              f"+ 4 a block")
+        t0 = time.perf_counter()
+        head = E.mesh_l5_compress(cpu_mesh, arr[:2 * BLOCK], block_size=BLOCK, jobs=8)
+        cpu5_s = time.perf_counter() - t0
+        check(first_frames(w5, 2) == first_frames(head, 2),
+              "phase 12: level 5's first two blocks differ from the CPU world's")
+        out["l5"] = {"bytes_out": len(w5), "host_bytes_out": len(ref),
+                     "compress_mb_s": mb / c5, "mesh_decompress_mb_s": mb / d5,
+                     "host_decompress_mb_s": mb / host_d, "cpu_world_s": cpu5_s}
+
+        # step 3: level 1 over the mesh
+        mesh.stats.clear()
+        w1, c1 = run("l1", lambda: E.mesh_l1_compress(mesh, arr, block_size=BLOCK, jobs=8))
+        check(counts["l1"].get("lz_words", 0) > 0, f"phase 12: lz_words never ran: {counts['l1']}")
+        out["l1_gathers"] = gathers(mesh.stats)
+        t0 = time.perf_counter()
+        got = _decompress(port.CompressedInputStream, w1, 8, device=None)
+        host1_d = time.perf_counter() - t0
+        check(got == data, "phase 12: the host reader's decode of the level-1 mesh stream differs")
+        ref1 = _compress(port.CompressedOutputStream, data,
+                         {"transform": "LZX", "entropy": "NONE", "blockSize": BLOCK,
+                          "jobs": 8}, device=None)
+        check(len(w1) <= 1.05 * len(ref1),
+              f"phase 12: level 1 {len(w1)} B is more than 1.05 x the host parse's {len(ref1)} B")
+        t0 = time.perf_counter()
+        head = E.mesh_l1_compress(cpu_mesh, arr[:2 * BLOCK], block_size=BLOCK, jobs=8)
+        cpu1_s = time.perf_counter() - t0
+        check(first_frames(w1, 2) == first_frames(head, 2),
+              "phase 12: level 1's first two blocks differ from the CPU world's")
+        out["l1"] = {"bytes_out": len(w1), "host_bytes_out": len(ref1),
+                     "compress_mb_s": mb / c1, "host_decompress_mb_s": mb / host1_d,
+                     "cpu_world_s": cpu1_s}
+    finally:
+        dist.destroy_process_group()
+    out["launches"] = counts
+
+    # step 4: two ranks on the one card, the collectives through gloo
+    t0 = time.perf_counter()
+    ranks = dryrun.spawn("chip_smoke:mesh_l5_rank", 2, "cuda", (len(data), 12, 8),
+                         backend="gloo", timeout=MESH_L5_RANK_TIMEOUT)
+    wall = time.perf_counter() - t0
+    check(ranks[0]["wire"] == w5,
+          "phase 12: the two gloo ranks on the card wrote another level-5 stream")
+    # each rank runs one row of every SA dispatch (pass B pads each bucket's
+    # last group) and its rows of every block's ANS0 encode
+    sa = [res["launches"]["suffix_array"] for res in ranks]
+    for r, res in enumerate(ranks):
+        lc = res["launches"]
+        check(res["device"] == "cuda:0" and lc["ans0_encode_scan"] == blocks
+              and sa[r] == sa[0] and 2 * sa[r] >= blocks,
+              f"phase 12: gloo rank {r} on {res['device']} did not run its share on the "
+              f"card: {lc}")
+    out["gloo2"] = {"compress_mb_s": mb / ranks[0]["seconds"], "wall_s": wall,
+                    "gathers": gathers(ranks[0]["stats"]),
+                    "passes_s": {k[-1]: v[0] for k, v in ranks[0]["stats"].items()
+                                 if k.startswith("l5")},
+                    "launches": [{k: v for k, v in res["launches"].items() if v}
+                                 for res in ranks]}
+    return out
+
+
+def print_phase12(r: dict, prior: dict) -> None:
+    card = card_line()
+    p4, p7 = prior.get("phase 4"), prior.get("phase 7")
+
+    def was(p, key):
+        return "not run" if p is None else f"{p[key]['port']:.2f}"
+
+    print(f"phase 12: {r['mesh']}; NCCL up in {r['init_s']:.2f} s (NCCL_SOCKET_IFNAME="
+          f"{os.environ.get('NCCL_SOCKET_IFNAME')}); card {card}")
+    print(f"phase 12: mesh_ans0_compress of the first 4 MiB block: {r['ans0']['bytes_out']} B, "
+          f"equal to the host encoder's in a fresh writer; mesh_ans0_decompress gives it "
+          f"back; a flipped payload byte raises BitStreamError")
+    a = r["l5"]
+    print(f"phase 12: level 5 over the NCCL world of 1: {a['bytes_out']} B (host stream "
+          f"{a['host_bytes_out']} B); compress MB/s {a['compress_mb_s']:.2f} (phase 4 "
+          f"{was(p4, 'compress_mb_s')}), mesh decompress MB/s {a['mesh_decompress_mb_s']:.2f} "
+          f"(phase 4 {was(p4, 'decompress_mb_s')}), host reader {a['host_decompress_mb_s']:.2f}; "
+          f"passes A {r['l5_passes_s']['A']:.3f} s, B {r['l5_passes_s']['B']:.3f} s, "
+          f"C {r['l5_passes_s']['C']:.3f} s; first two blocks equal the CPU gloo world's "
+          f"({a['cpu_world_s']:.1f} s); card {card}")
+    b = r["l1"]
+    print(f"phase 12: level 1 over the NCCL world of 1: {b['bytes_out']} B (host parse "
+          f"{b['host_bytes_out']} B); compress MB/s {b['compress_mb_s']:.2f} (phase 7 "
+          f"{was(p7, 'compress_mb_s')}), host reader MB/s {b['host_decompress_mb_s']:.2f}; "
+          f"first two blocks equal the CPU gloo world's ({b['cpu_world_s']:.1f} s); card {card}")
+    g = r["gloo2"]
+    print(f"phase 12: two gloo ranks on cuda:0: the level-5 stream of the NCCL world; "
+          f"compress MB/s {g['compress_mb_s']:.2f} (rank 0's clock; {g['wall_s']:.1f} s with "
+          f"the processes' start), passes "
+          + ", ".join(f"{k} {v:.3f} s" for k, v in sorted(g["passes_s"].items()))
+          + f"; launches {g['launches']}; card {card}")
+    for label, gs in (("level 5", r["l5_gathers"]), ("level-5 mesh decode", r["l5_decode_gathers"]),
+                      ("level 1", r["l1_gathers"]), ("two gloo ranks, level 5", g["gathers"])):
+        print(f"phase 12: gathers of {label}: "
+              + "; ".join(f"{k} {v['ms_per_call']:.4f} ms a call x {v['calls']} "
+                          f"({v['bytes_per_call']:.0f} B)" for k, v in gs.items())
+              + f"; card {card}")
+    print(f"phase 12: launches {r['launches']}")
+
+
 def _family(name: str) -> str:
     """Kernel family of a device event, for the level-1 profile."""
     low = name.lower()
@@ -1488,6 +1729,8 @@ def main() -> int:
     ap.add_argument("--quick", action="store_true", help="stop after phase 2")
     ap.add_argument("--profile", action="store_true",
                     help="profile one level-1 compress after phase 1, then stop")
+    ap.add_argument("--mesh", action="store_true",
+                    help="run phases 0-1 and 12 (the multi-GPU engine) only")
     ap.add_argument("--phase2", metavar="GROUPS",
                     help="run only these comma-separated phase-2 groups (of "
                          f"{', '.join(PHASE2_GROUPS)}), then stop")
@@ -1526,6 +1769,11 @@ def main() -> int:
     t = time.perf_counter()
     data = mixed_corpus(64 << 20, seed=12).tobytes()
     print(f"phase 2: corpus of {len(data)} B made in {time.perf_counter() - t:.1f} s")
+    if args.mesh:
+        t = time.perf_counter()
+        print_phase12(phase12_mesh(data), {})
+        print(f"phase 12: done in {time.perf_counter() - t:.1f} s")
+        return 0
     if args.profile:
         print(card_line())
         print(json.dumps({"level1_profile": profile_level1(data[:32 << 20], dev)}))
@@ -1591,6 +1839,7 @@ def main() -> int:
         return 0
 
     launches = dict.fromkeys(REPLACES, 0)
+    prior = {}
     for label, transform, entropy, names, dec in (
             ("phase 3: ANS0 alone", "NONE", "ANS0", ANS0_KERNELS, "ans0_decode"),
             ("phase 4: level 5", "TEXT+UTF+BWT+RANK+ZRLT", "ANS0", ANS0_KERNELS, "ans0_decode"),
@@ -1599,6 +1848,7 @@ def main() -> int:
              "huffman_decode")):
         t = time.perf_counter()
         r = stream_phase(label, data, transform, entropy, dev, kern, names, dec)
+        prior[label.split(":")[0]] = r
         for k, v in r["launches"].items():
             launches[k] += v
         print(f"{label}: {r['bytes_in']} B -> {r['bytes_out']} B, identical to the host "
@@ -1611,6 +1861,7 @@ def main() -> int:
               f"{time.perf_counter() - t:.1f} s")
     t = time.perf_counter()
     r = phase7_level1(data, dev, kern)
+    prior["phase 7"] = r
     launches.update(r["launches"])
     print(f"phase 7: level 1: {r['bytes_in']} B -> {r['bytes_out']} B with the LZX parse on "
           f"the card, host parse {r['host_bytes_out']} B; first two blocks equal the CPU "
@@ -1676,6 +1927,14 @@ def main() -> int:
     print(f"phase 11: {r['bytes_in']} B -> {r['bytes_out']} B ({r['blocks']} blocks), the "
           f"three .knz files identical, -d on the card and on the host give back the input, "
           f"-y prints the header; {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    r = phase12_mesh(data)
+    print_phase12(r, prior)
+    print(f"phase 12: done in {time.perf_counter() - t:.1f} s")
+    for step in r["launches"].values():
+        for k, v in step.items():
+            if k in launches:
+                launches[k] += v
 
     kernels = []
     for name, (src, rep, also) in REPLACES.items():

@@ -37,6 +37,12 @@ chunk (default chunk size and log range), on the CUDA kernels (``cuda``) or
 their plain PyTorch versions (``cpu``); the minimums are the reference's.
 Every other case is the host path whatever the device; order 1 decodes on
 the host, as in the reference, which has no device decoder for it.
+
+Ahead of the device gate, a mesh in ``ctx["_ans0_mesh"]`` (rank 0 of
+parallel/engine.py's multi-GPU engine) takes every order-0 block of more
+than 32 bytes: its chunks shard over the mesh's ranks, with no minimum
+chunk count, as in kanzi_tpu; a decode whose first chunk has a non-default
+log range goes to the paths below.
 """
 
 from __future__ import annotations
@@ -173,6 +179,16 @@ class ANSRangeEncoder:
         bw = bw or self.bw
         block = np.asarray(block, dtype=np.uint8)
         count = block.size
+        mesh = (self._ctx or {}).get("_ans0_mesh")
+        if mesh is not None and self.order == 0 and count > 32:
+            # the entropy stage sharded over the mesh (parallel/engine.py);
+            # the exact ANSRangeEncoder wire, appended byte-aligned (a fresh
+            # writer per block), as kanzi_tpu's mesh writes it
+            from ..parallel import engine as _eng
+            with _eng.MESH_DISPATCH_LOCK:
+                wire = _eng.ans0_wire(mesh, block, chunk=self._chunk_size0)
+            bw.write_bytes(wire)
+            return count
         if (self.device is not None
                 and self._chunk_size0 == DEFAULT_ANS0_CHUNK_SIZE
                 and self._log_range0 == DEFAULT_LOG_RANGE
@@ -277,6 +293,21 @@ class ANSRangeDecoder:
 
     def decode(self, count: int, br: BitReader | None = None) -> np.ndarray:
         br = br or self.br
+        mesh = (self._ctx or {}).get("_ans0_mesh")
+        if (mesh is not None and self.order == 0 and count > 32
+                and self.bs_version >= 4):
+            # the chunk decode sharded over the mesh, symmetric to the
+            # encoder's hook; the first chunk's log range is peeked: a stream
+            # with another (legal) one decodes on the paths below
+            pos = br.read_count
+            lr = 8 + br.read_bits(3)
+            br.seek(pos)
+            if (lr == DEFAULT_LOG_RANGE
+                    and self._chunk_size0 == DEFAULT_ANS0_CHUNK_SIZE):
+                from ..parallel import engine as _eng
+                with _eng.MESH_DISPATCH_LOCK:
+                    return _eng.mesh_ans0_decode_stream(mesh, br, count,
+                                                        chunk=self._chunk_size0)
         if (self.device is not None and self.order == 0 and self.bs_version >= 4
                 and self._chunk_size0 == DEFAULT_ANS0_CHUNK_SIZE
                 and count >= 4 * self._chunk_size0):

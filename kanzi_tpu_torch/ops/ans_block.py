@@ -81,31 +81,45 @@ def ans0_encode(block: np.ndarray, bw: BitWriter, device: torch.device) -> int:
 
 
 def _encode(block: np.ndarray, bw: BitWriter, device: torch.device) -> int:
+    return encode_ans0_wire(block, bw, lambda chunks: _device_rows(chunks, device))
+
+
+def _device_rows(chunks: np.ndarray, device: torch.device):
+    """The order-0 stage of full chunks on ``device``, fetched to the host:
+    (freq, payload (n, w) u16, n_emit, states), only the populated payload
+    prefix (a power-of-two width w) copied back."""
+    freq_t, pay_t, ne_t, st_t = ans_cuda.encode_chunks_tensors(
+        ans_cuda.to_device(chunks, device))
+    n_emit = ne_t.cpu().numpy()
+    w = min(1 << max(int(n_emit.max(initial=0)) - 1, 1).bit_length(), chunks.shape[1])
+    return (freq_t.cpu().numpy(), pay_t[:, :w].contiguous().cpu().numpy().view(np.uint16),
+            n_emit, st_t.cpu().numpy())
+
+
+def encode_ans0_wire(block: np.ndarray, bw: BitWriter, rows, chunk: int = CHUNK) -> int:
+    """ANSRangeEncoder(order=0, chunk_size=chunk).encode of ``block`` into
+    ``bw``, the full chunks through ``rows``: rows(chunks uint8 (n, chunk))
+    -> (freq (n, 256), payload (n, w) u16 with w at or above every length,
+    n_emit (n,), states (n, 4)), numpy.  Blocks of at most 32 bytes and the
+    tail chunk are written on the host.  One device (``_device_rows``) or
+    the ranks of a mesh (parallel/engine.py) run the rows."""
     block = np.asarray(block, dtype=np.uint8)
     count = block.size
     if count <= 32:
         bw.write_bytes(block.tobytes())
         return count
-    nfull = count // CHUNK
-    tail = count - nfull * CHUNK
+    nfull = count // chunk
+    tail = count - nfull * chunk
     if nfull > 0:
-        chunks = ans_cuda.to_device(block[:nfull * CHUNK].reshape(nfull, CHUNK),
-                                    device)
-        freq_t, pay_t, ne_t, st_t = ans_cuda.encode_chunks_tensors(chunks)
-        freq = freq_t.cpu().numpy().astype(np.int64)
-        n_emit = ne_t.cpu().numpy()
-        states = st_t.cpu().numpy()
+        freq, payload, n_emit, states = rows(block[:nfull * chunk].reshape(nfull, chunk))
+        freq = np.asarray(freq, dtype=np.int64)
         nz = freq > 0
-        nsym = nz.sum(axis=1)
         alphabets = [np.flatnonzero(nz[i]).astype(np.int32) for i in range(nfull)]
-        # fetch only the populated payload prefix (power-of-two width)
-        mw = int(n_emit.max(initial=0))
-        mw = min(1 << max(mw - 1, 1).bit_length(), CHUNK)
-        payload = pay_t[:, :mw].contiguous().cpu().numpy().view(np.uint16)
-        assemble_ans0_wire(bw, freq, nsym, alphabets, n_emit, states,
+        assemble_ans0_wire(bw, freq, nz.sum(axis=1), alphabets, n_emit, states,
                            payload, np.arange(nfull))
     if tail:
-        hans.ANSRangeEncoder(bw, 0)._encode_chunk(block[nfull * CHUNK:], bw)
+        hans.ANSRangeEncoder(bw, 0, chunk_size=chunk)._encode_chunk(
+            block[nfull * chunk:], bw)
     return count
 
 
@@ -182,11 +196,28 @@ def ans0_decode(count: int, br: BitReader, device: torch.device) -> np.ndarray:
 
 
 def _decode(count: int, br: BitReader, device: torch.device) -> np.ndarray:
+    def rows(pay, lens, states, freq, cum):
+        return ans_cuda.ans0_decode_chunks(pay, states, freq, cum, device, lengths=lens)
+    return decode_ans0_wire(count, br, rows)
+
+
+def decode_ans0_wire(count: int, br: BitReader, rows, chunk: int = CHUNK,
+                     host_log_ranges: bool = True) -> np.ndarray:
+    """ANSRangeDecoder(order=0, chunk_size=chunk).decode of ``count`` bytes
+    from ``br``, the payloads of the full chunks through ``rows``:
+    rows(payload uint8 (n, p), lengths (n,) i32, states (n, 4) i64, freq
+    (n, 256) i64, cum (n, 256) i64) -> (out uint8 (n, chunk), consumed
+    (n,)), numpy.  The headers are parsed here in stream order; single-symbol
+    chunks and the tail decode on the host.  A chunk with another log range
+    than the kernels' 12 decodes on the host with every later chunk, or, with
+    ``host_log_ranges`` false (kanzi_tpu's mesh rule), raises.  An empty
+    alphabet, a chunk size at or over the maximum or a consumed count that
+    differs from the payload's raise BitStreamError."""
     if count <= 32:
         return br.read_bytes(count)
     out = np.empty(count, dtype=np.uint8)
-    nfull = count // CHUNK
-    tail = count - nfull * CHUNK
+    nfull = count // chunk
+    tail = count - nfull * chunk
     # stage 1 (host, sequential): parse per-chunk headers and slice payloads
     full = []     # (start, freqs, states, payload bytes)
     single = []   # (start, symbol)
@@ -194,6 +225,9 @@ def _decode(count: int, br: BitReader, device: torch.device) -> np.ndarray:
     for i in range(nfull):
         lr = 8 + br.read_bits(3)
         if lr != LOG_RANGE:
+            if not host_log_ranges:
+                raise BitStreamError("mesh decode: non-default log range",
+                                     BitStreamError.INVALID_STREAM)
             # valid streams may use any lr in [8, 15]; the kernels are
             # specialised to the default 12, so the rest decodes on the host
             if not 8 <= lr <= 15:
@@ -206,14 +240,14 @@ def _decode(count: int, br: BitReader, device: torch.device) -> np.ndarray:
             raise BitStreamError("empty ANS alphabet",
                                  BitStreamError.INVALID_STREAM)
         if len(alpha) == 1:
-            single.append((i * CHUNK, int(alpha[0])))
+            single.append((i * chunk, int(alpha[0])))
             continue
         sz = eu.read_varint(br)
         if sz >= hans.MAX_CHUNK_SIZE:
             raise BitStreamError("invalid ANS chunk size",
                                  BitStreamError.INVALID_STREAM)
         states = [br.read_bits(32) for _ in range(4)]
-        full.append((i * CHUNK, freqs, states, br.read_bytes(sz)))
+        full.append((i * chunk, freqs, states, br.read_bytes(sz)))
     if full:
         lens = np.array([len(m[3]) for m in full], dtype=np.int32)
         pay = np.zeros((len(full), max(int(lens.max()), 1)), dtype=np.uint8)
@@ -224,25 +258,21 @@ def _decode(count: int, br: BitReader, device: torch.device) -> np.ndarray:
             freq[k] = m[1]
             states[k] = m[2]
         cum = np.cumsum(freq, axis=1) - freq
-        res, consumed = ans_cuda.ans0_decode_chunks(pay, states, freq, cum,
-                                                    device, lengths=lens)
+        res, consumed = rows(pay, lens, states, freq, cum)
         if not np.array_equal(consumed, lens):
             raise BitStreamError("ANS payload size mismatch (device decode)",
                                  BitStreamError.INVALID_STREAM)
         for k, m in enumerate(full):
-            out[m[0]:m[0] + CHUNK] = res[k]
+            out[m[0]:m[0] + chunk] = res[k]
     for start, sym in single:
-        out[start:start + CHUNK] = sym
+        out[start:start + chunk] = sym
+    dec = hans.ANSRangeDecoder(br, 0, chunk_size=chunk)
     if host_resume is not None:
         i0, lr0 = host_resume
-        dec = hans.ANSRangeDecoder(br, 0)
-        dec._decode_chunk(out, i0 * CHUNK, min((i0 + 1) * CHUNK, count),
+        dec._decode_chunk(out, i0 * chunk, min((i0 + 1) * chunk, count),
                           br, lr=lr0)
         for i in range(i0 + 1, nfull):
-            dec._decode_chunk(out, i * CHUNK, (i + 1) * CHUNK, br)
-        if tail:
-            dec._decode_chunk(out, nfull * CHUNK, count, br)
-        return out
+            dec._decode_chunk(out, i * chunk, (i + 1) * chunk, br)
     if tail:
-        hans.ANSRangeDecoder(br, 0)._decode_chunk(out, nfull * CHUNK, count, br)
+        dec._decode_chunk(out, nfull * chunk, count, br)
     return out

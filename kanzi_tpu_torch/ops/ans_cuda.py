@@ -59,13 +59,13 @@ def _i32(v: torch.Tensor) -> torch.Tensor:
 # kernel 1: histogram + normalisation
 # ---------------------------------------------------------------------------
 
-def _normalize_ref(hist: torch.Tensor) -> torch.Tensor:
+def _normalize_ref(hist: torch.Tensor, total_shift: int = TOTAL_SHIFT) -> torch.Tensor:
     """kanzi_tpu.ops.ans_pallas._normalize_freqs_jax for rows summing to
-    2^14, in int64: half-up scaling, first max, five bounded rounds."""
-    total = 1 << TOTAL_SHIFT
+    2^total_shift, in int64: half-up scaling, first max, five bounded rounds."""
+    total = 1 << total_shift
     nz = hist > 0
     sf = hist * SCALE
-    scaled = torch.where(sf <= total, 1, (sf + (total >> 1)) >> TOTAL_SHIFT)
+    scaled = torch.where(sf <= total, 1, (sf + (total >> 1)) >> total_shift)
     scaled = torch.where(nz, scaled, 0)
     idx_max = torch.argmax(scaled, dim=1, keepdim=True)          # first max
     oh_max = torch.arange(256, device=hist.device) == idx_max
@@ -99,11 +99,16 @@ def _normalize_ref(hist: torch.Tensor) -> torch.Tensor:
 
 
 def hist_norm_ref(chunks: torch.Tensor) -> torch.Tensor:
-    """chunks (N, 16384) uint8 -> normalised freq (N, 256) int32 (sum 4096)."""
+    """chunks (N, C) uint8, C a power of two (the kernel's 16384 on the
+    main path) -> normalised freq (N, 256) int32 (sum 4096)."""
+    width = chunks.shape[1]
+    shift = width.bit_length() - 1
+    if width != 1 << shift:
+        raise ValueError(f"chunk width {width} is not a power of two")
     hist = torch.zeros((chunks.shape[0], 256), dtype=torch.int64,
                        device=chunks.device)
     hist.scatter_add_(1, chunks.long(), torch.ones_like(chunks, dtype=torch.int64))
-    return _normalize_ref(hist).to(torch.int32)
+    return _normalize_ref(hist, shift).to(torch.int32)
 
 
 def hist_norm(chunks: torch.Tensor) -> torch.Tensor:
@@ -220,8 +225,10 @@ def compact(words: torch.Tensor, flags: torch.Tensor):
 # ---------------------------------------------------------------------------
 
 def decode_ref(payload: torch.Tensor, lengths: torch.Tensor,
-               states: torch.Tensor, freq: torch.Tensor, cum: torch.Tensor):
-    """Decode full 16 KiB chunks.  payload (N, P) uint8 renorm byte pairs,
+               states: torch.Tensor, freq: torch.Tensor, cum: torch.Tensor,
+               width: int = CHUNK):
+    """Decode full chunks of ``width`` bytes (the kernel's 16 KiB on the
+    main path; a multiple of 4).  payload (N, P) uint8 renorm byte pairs,
     lengths (N,) the real payload bytes of each row (a read at or past it
     gives 0), states (N, 4) the stream's 32-bit unsigned states, freq/cum
     (N, 256).  Slot s decodes to the first symbol whose bound cum + freq
@@ -245,8 +252,8 @@ def decode_ref(payload: torch.Tensor, lengths: torch.Tensor,
     words = (pay[:, 0::2] << 8) | pay[:, 1::2]
     st = states.long() & 0xFFFFFFFF
     ptr = torch.zeros((n, 1), dtype=torch.int64, device=dev)   # in words
-    syms = torch.empty((CHUNK // 4, n, 4), dtype=torch.int64, device=dev)
-    for t in range(CHUNK // 4):
+    syms = torch.empty((width // 4, n, 4), dtype=torch.int64, device=dev)
+    for t in range(width // 4):
         slot = st & (SCALE - 1)
         cur = lut.gather(1, slot)
         syms[t] = cur
@@ -259,7 +266,7 @@ def decode_ref(payload: torch.Tensor, lengths: torch.Tensor,
         rd = words.gather(1, torch.clamp(ptr + tot - cs, max=nw - 1))
         st = torch.where(need, (st << 16) | rd, st)
         ptr = ptr + tot
-    out = syms.permute(1, 0, 2).flip(2).reshape(n, CHUNK).to(torch.uint8)
+    out = syms.permute(1, 0, 2).flip(2).reshape(n, width).to(torch.uint8)
     return out, (2 * ptr[:, 0]).to(torch.int32)
 
 
@@ -291,9 +298,11 @@ def decode_tables_ref(freq: torch.Tensor, cum: torch.Tensor):
 
 
 def decode(payload: torch.Tensor, lengths: torch.Tensor, states: torch.Tensor,
-           freq: torch.Tensor, cum: torch.Tensor):
+           freq: torch.Tensor, cum: torch.Tensor, width: int = CHUNK):
     if payload.device.type == "cpu":
-        return decode_ref(payload, lengths, states, freq, cum)
+        return decode_ref(payload, lengths, states, freq, cum, width)
+    if width != CHUNK:
+        raise ValueError(f"chunk width {width}: the decode kernel takes {CHUNK}-byte chunks")
     n = payload.shape[0]
     _require(payload, torch.uint8, (n, None))
     p = payload.shape[1]

@@ -24,9 +24,9 @@ Ranks stay below ``2 * npad``; biasing the high word by 2^31 keeps the key's
 order for any rank below 2^32, so no block the BWT takes (at most 1 GiB,
 ``npad`` at most 1.5 x 2^30) can overflow it.  The SA is unique, so its BWT
 is the host's bit for bit.  Each round costs one ``.item()`` (the
-convergence flag), a sync with the device's current stream.  Every call is
-counted in ``launch.launches["suffix_array"]``, on either device (the SA has
-no kernel of its own).
+convergence flag), a sync with the device's current stream.  Every run of
+``prefix_doubling`` is counted in ``launch.launches["suffix_array"]``, on
+either device (the SA has no kernel of its own).
 """
 
 from __future__ import annotations
@@ -70,7 +70,9 @@ def _dense_ranks(key: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 def prefix_doubling(glob: torch.Tensor, n: int) -> tuple[torch.Tensor, int]:
     """Suffix array of the padded buffer ``glob`` (uint8, ``npad`` long, its
     first ``n`` bytes real, the rest 0) over all ``npad`` positions, on
-    ``glob``'s device; returns (the int64 SA, the rounds after the seed)."""
+    ``glob``'s device; returns (the int64 SA, the rounds after the seed).
+    Counted as one ``suffix_array`` launch."""
+    launch.count("suffix_array")
     npad = glob.numel()
     dev = glob.device
     iota = torch.arange(npad, device=dev)
@@ -108,7 +110,6 @@ def suffix_array_device(src: np.ndarray, *, device) -> np.ndarray:
     """Suffix array of ``src`` (uint8) computed on ``device`` (``cuda``: the
     card, which must be there; ``cpu``: the same tensor code on the host)."""
     dev = check_device(device)
-    launch.count("suffix_array")
     src = np.asarray(src, dtype=np.uint8)
     n = src.size
     if n <= 2:

@@ -220,6 +220,12 @@ def _match_stage(rows, vend, isfirst, mdrow, mm: int):
     return mlen2.reshape(-1), dist_p[:, OV:].reshape(-1)
 
 
+def _analyze_flat(bufs, src_end, max_dist, mm: int):
+    """The whole-block engine on one batch (kanzi_tpu's _analyze_flat):
+    match finding, then the parse; (pk, dist, n_tok) as _parse_stage."""
+    return _parse_stage(*_match_flat(bufs, src_end, max_dist, mm), mm)
+
+
 def _compose_prefix(maps: torch.Tensor) -> torch.Tensor:
     """Inclusive prefix composition of the windows' entry->exit maps:
     out[i][e] = maps[i][...maps[0][e]] (Hillis-Steele, log2(nwin) rounds)."""
@@ -426,9 +432,9 @@ def lzx_forward_device_batch(blocks, extra: bool = False,
                     bufs[j, :blocks[i].size] = blocks[i]
                     send[j] = blocks[i].size - 18
                     mdist[j] = _block_max_dist(blocks[i].size)
-                pk, dist, k = _parse_stage(*_match_flat(
+                pk, dist, k = _analyze_flat(
                     torch.from_numpy(bufs).to(dev), torch.from_numpy(send).to(dev),
-                    torch.from_numpy(mdist).to(dev), mm), mm)
+                    torch.from_numpy(mdist).to(dev), mm)
                 if k == 0:
                     continue
                 p, l_, d = _fetch_tokens(pk, dist)

@@ -115,6 +115,37 @@ def test_cli_level5_device_bwt_without_jax(tmp_path):
     assert (tmp_path / "out").read_bytes() == src.read_bytes()
 
 
+_MESH_L5 = """
+import io, sys
+import torch.distributed as dist
+from kanzi_tpu_torch.io.stream import CompressedInputStream
+from kanzi_tpu_torch.parallel import dryrun, engine
+from kanzi_tpu_torch.utils.corpus import mixed_corpus
+dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{dryrun.free_port()}",
+                        world_size=1, rank=0)
+mesh = engine.make_mesh(1, device="cpu")
+data = mixed_corpus(200000, seed=5)
+wire = engine.mesh_l5_compress(mesh, data, block_size=1 << 17, jobs=2)
+assert engine.mesh_decompress(mesh, wire, jobs=2) == data.tobytes()
+with CompressedInputStream(io.BytesIO(wire), {}, device=None) as cis:
+    assert cis.read(-1) == data.tobytes()
+dist.destroy_process_group()
+loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "kanzi_tpu"))
+assert not loaded, loaded
+print("ok")
+"""
+
+
+def test_mesh_level5_without_jax():
+    """A fresh process runs the multi-GPU engine's level 5 on a gloo world
+    of one rank on the CPU, and its mesh decode, and loads no jax and no
+    kanzi_tpu module."""
+    res = subprocess.run([sys.executable, "-c", _MESH_L5], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "ok"
+
+
 def test_no_jax_import_in_package():
     pat = re.compile(r"^\s*(import|from)\s+jax\b", re.M)
     files = [os.path.join(d, f) for d, _, fs in os.walk(PKG) for f in fs
