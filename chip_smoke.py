@@ -114,11 +114,25 @@ Phases, one line each; any failure raises and the exit code is not 0:
      passes A-C, and each gather's ms a call (the lengths and the payloads
      apart, a host clock around a synchronize), with the card's name and
      power limit
-The launch counts are set to 0 just before each of phases 3-9 and each step
-of phase 12 and read just after it; phase 12's counts join the kernels
-line's.  Then the card line, one JSON line of the kernels (each with its
-bound: the larger of its bytes over 3.35 TB/s and its integer operations
-over 67 T/s), and the result line.
+ 13  the v1 device LZX engine (ops/lz_tpu.py: tensor code, no kernel of its
+     own, so no row of the kernels line; counted as lz_v1) under
+     KANZI_TPU_DEVICE_LZ=legacy: on each 4 MiB block of the same 64 MiB,
+     its sections on the card equal the port's device="cpu" run for the
+     first two blocks and every section decodes through the host inverse;
+     one block's card ms by stage (hash ladder, extension, parse, token
+     fetch; CUDA events, warm, median of 3), its host emission and the
+     peak allocation; level 3 at jobs 8 (the engine a block), decoded on
+     the card and by the host coders, its first two blocks equal to a CPU
+     run, its MB/s and bytes beside phase 6's; level 1, which keeps the
+     writer's v3 batch and writes phase 7's bytes; and real_corpus(64
+     MiB), its sha256 and sections, through level 3 under legacy against
+     the host coders, round-tripped
+The launch counts are set to 0 just before each of phases 3-9, each step
+of phase 12 and each stream of phase 13 and read just after it; the
+counts of phases 12 and 13 join the kernels line's.  Then the card line,
+one JSON line of the kernels (each with its bound: the larger of its bytes
+over 3.35 TB/s and its integer operations over 67 T/s), and the result
+line.
 ``--mesh`` runs phases 0-1 and 12 only and prints no result line.
 ``--quick`` stops after phase 2 and prints no result line, for the first
 call after a kernel changes; ``--phase2 ans0,huffman`` (any of floor, ans0,
@@ -135,6 +149,7 @@ the script exits non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import hashlib
 import io
 import json
 import os
@@ -1210,6 +1225,7 @@ def phase7_level1(data: bytes, dev, kern: dict) -> dict:
     check(len(blob) <= 1.05 * len(ref),
           f"level 1: {len(blob)} B is more than 1.05 x the host parse's {len(ref)} B")
     return {"bytes_in": len(data), "bytes_out": len(blob), "host_bytes_out": len(ref),
+            "sha256": hashlib.sha256(blob).hexdigest(),
             "device_share": {"compress": launches["lz_words"] * kern["lz_words"]["ms"]
                              / 1e3 / port_c},
             "compress_mb_s": {"port": mb / port_c, "host": mb / host_c},
@@ -1649,6 +1665,205 @@ def print_phase12(r: dict, prior: dict) -> None:
     print(f"phase 12: launches {r['launches']}")
 
 
+# phase 13: the v1 device LZX engine (ops/lz_tpu.py, tensor code, no kernel
+# of its own) under KANZI_TPU_DEVICE_LZ=legacy
+LEVEL3 = ("TEXT+UTF+PACK+MM+LZX", "HUFFMAN")
+
+
+def v1_stage_ms(block: bytes, dev, reps: int = 3) -> dict:
+    """The v1 engine on one block, by stage: CUDA events around the hash
+    ladder, the extension, the parse (its token count's sync included) and
+    the token fetch, the host clock around the emission; each the median of
+    ``reps`` runs after a warm one.  Also the whole call on the host clock
+    and the peak allocation on the card of one analysis."""
+    import numpy as np
+    import torch
+
+    from kanzi_tpu_torch.ops import lz_tpu as V
+    from kanzi_tpu_torch.ops.lz_emit import _emit
+
+    src = np.frombuffer(block, np.uint8)
+    count = src.size
+    src_end = count - 18
+    max_dist = V.MAX_DISTANCE1 if src_end < 4 * V.MAX_DISTANCE1 else V.MAX_DISTANCE2
+    pad = np.zeros(V._pad_bucket(count), np.uint8)
+    pad[:count] = src
+    x = torch.from_numpy(pad).to(dev)
+    names = ("ladder", "extension", "parse", "fetch", "emission")
+
+    def run() -> list:
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+        ev[0].record()
+        w = V._words(x)
+        cand = V._ladder(w, 4, max_dist)
+        ev[1].record()
+        mlen, dist = V._extend(w, cand, src_end, 4)
+        ev[2].record()
+        *toks, k = V._parse(mlen, dist, 4)
+        ev[3].record()
+        pos, ln, d = V._fetch(*toks, k)
+        ev[4].record()
+        ev[4].synchronize()
+        t = time.perf_counter()
+        _emit(src, count, 4, max_dist, pos, ln, d)
+        return [ev[i].elapsed_time(ev[i + 1]) for i in range(4)] \
+            + [(time.perf_counter() - t) * 1e3]
+
+    run()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    runs = [run() for _ in range(reps)]
+    peak = torch.cuda.max_memory_allocated() - base
+    res = {n: statistics.median(r[i] for r in runs) for i, n in enumerate(names)}
+    res["call_ms"] = host_ms(lambda: V.lzx_forward_device(src, True, 4, device=dev), reps)
+    res["peak_bytes"] = peak
+    return res
+
+
+def phase13_v1(data: bytes, dev, prior: dict) -> dict:
+    """The v1 engine alone on every 4 MiB block of ``data`` (its first two
+    blocks' sections equal the port's device="cpu" run, every section
+    decodes through the host inverse), its stages on one block; then, under
+    KANZI_TPU_DEVICE_LZ=legacy, level 3 (the engine a block, at jobs 8)
+    against phase 6 and its first two blocks against a CPU run, level 1
+    (the writer's v3 batch: phase 7's bytes), and level 3 on
+    real_corpus(64 MiB) against the host.  The launch counts are set to 0
+    just before each stream's compress and read just after its decode on
+    the card."""
+    import numpy as np
+    import torch
+
+    from kanzi_tpu_torch.io import stream as port
+    from kanzi_tpu_torch.ops import launch
+    from kanzi_tpu_torch.ops import lz_tpu as V
+    from kanzi_tpu_torch.transforms.lz import LZXCodec
+    from kanzi_tpu_torch.utils.corpus import real_corpus
+
+    out: dict = {"launches": {}}
+    blocks = [np.frombuffer(data[i:i + BLOCK], np.uint8) for i in range(0, len(data), BLOCK)]
+    t = time.perf_counter()
+    secs = [V.lzx_forward_device(b, True, 4, device=dev) for b in blocks]
+    torch.cuda.synchronize()
+    engine_s = time.perf_counter() - t
+    t = time.perf_counter()
+    for i in range(2):
+        want = V.lzx_forward_device(blocks[i], True, 4, device="cpu")
+        check((want is None and secs[i] is None)
+              or (want is not None and secs[i] is not None and np.array_equal(want, secs[i])),
+              f"phase 13: the v1 sections of block {i} differ from the port's CPU run")
+    cpu_s = time.perf_counter() - t
+    for i, (b, s) in enumerate(zip(blocks, secs)):
+        check(s is None or np.array_equal(LZXCodec().inverse(s, b.size), b),
+              f"phase 13: the v1 section of block {i} does not decode to the block")
+    out["engine"] = {"blocks": len(blocks), "mb_s": len(data) / 1e6 / engine_s,
+                     "bytes_out": sum(b.size if s is None else s.size
+                                      for b, s in zip(blocks, secs)),
+                     "skipped": sum(s is None for s in secs), "cpu_two_blocks_s": cpu_s,
+                     "stages_ms": v1_stage_ms(data[:BLOCK], dev)}
+
+    def level(label: str, lvl_data: bytes, chain: tuple, must: tuple,
+              cpu_head: bool, host: bool) -> dict:
+        """One stream of ``chain`` (transform, entropy) under legacy: the
+        port compresses and decodes on the card (the launch counts of
+        ``must`` and the engine's set to 0 just before, read just after;
+        each of ``must`` has to have run), then the host coders decode;
+        ``cpu_head``: its first two blocks against the port's CPU run;
+        ``host``: the host coders' compress beside it."""
+        ctx = {"transform": chain[0], "entropy": chain[1], "blockSize": BLOCK, "jobs": 8}
+        mb = len(lvl_data) / 1e6
+        r: dict = {"bytes_in": len(lvl_data)}
+        os.environ["KANZI_TPU_DEVICE_LZ"] = "legacy"
+        try:
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            launch.reset_launches()
+            t = time.perf_counter()
+            blob = _compress(port.CompressedOutputStream, lvl_data, ctx, device=dev)
+            torch.cuda.synchronize()
+            port_c = time.perf_counter() - t
+            t = time.perf_counter()
+            got = _decompress(port.CompressedInputStream, blob, 8, device=dev)
+            torch.cuda.synchronize()
+            port_d = time.perf_counter() - t
+            r["launches"] = {k: launch.launches[k] for k in must + ("lz_v1",)}
+            r["peak_bytes"] = torch.cuda.max_memory_allocated() - base
+            check(got == lvl_data, f"phase 13: {label}: the port's decode on the card differs")
+            check(all(r["launches"][k] > 0 for k in must),
+                  f"phase 13: {label}: a kernel never ran: {r['launches']}")
+            if cpu_head:
+                t = time.perf_counter()
+                head = _compress(port.CompressedOutputStream, lvl_data[:2 * BLOCK], ctx,
+                                 device="cpu")
+                r["cpu_head_s"] = time.perf_counter() - t
+                check(first_frames(blob, 2) == first_frames(head, 2),
+                      f"phase 13: {label}: the first two blocks differ from the port's CPU run")
+        finally:
+            del os.environ["KANZI_TPU_DEVICE_LZ"]
+        t = time.perf_counter()
+        got = _decompress(port.CompressedInputStream, blob, 8, device=None)
+        host_d = time.perf_counter() - t
+        check(got == lvl_data, f"phase 13: {label}: the host coders' decode differs")
+        r.update(bytes_out=len(blob), sha256=hashlib.sha256(blob).hexdigest(),
+                 compress_mb_s={"port": mb / port_c},
+                 decompress_mb_s={"port": mb / port_d, "host": mb / host_d})
+        if host:
+            t = time.perf_counter()
+            ref = _compress(port.CompressedOutputStream, lvl_data, ctx, device=None)
+            r["compress_mb_s"]["host"] = mb / (time.perf_counter() - t)
+            r["host_bytes_out"] = len(ref)
+        out["launches"][label] = r["launches"]
+        return r
+
+    out["l3"] = level("level 3", data, LEVEL3, HUFFMAN_KERNELS + ("lz_v1",), True, False)
+    out["l1"] = level("level 1", data, ("LZX", "NONE"), LZ_KERNELS, False, False)
+    check(out["l1"]["launches"]["lz_v1"] == 0, "phase 13: level 1 ran the v1 engine")
+    p7 = prior.get("phase 7")
+    check(p7 is None or out["l1"]["sha256"] == p7["sha256"],
+          "phase 13: level 1 under legacy differs from phase 7's stream")
+    t = time.perf_counter()
+    real, sha, breakdown = real_corpus(64 << 20)
+    out["real"] = {"sha256": sha, "sections": breakdown, "made_s": time.perf_counter() - t}
+    out["real"].update(level("level 3 on real_corpus", real.tobytes(), LEVEL3,
+                             HUFFMAN_KERNELS + ("lz_v1",), False, True))
+    return out
+
+
+def print_phase13(r: dict, prior: dict) -> None:
+    card = card_line()
+    e = r["engine"]
+    s = e["stages_ms"]
+    print(f"phase 13: the v1 engine alone on {e['blocks']} blocks of 4 MiB: "
+          f"{e['bytes_out']} B out ({e['skipped']} skipped), {e['mb_s']:.2f} MB/s; the first "
+          f"two blocks equal the port's CPU run ({e['cpu_two_blocks_s']:.1f} s), every section "
+          f"decodes; card {card}")
+    print(f"phase 13: one 4 MiB block by stage (CUDA events, median of 3): ladder "
+          f"{s['ladder']:.4f} ms, extension {s['extension']:.4f} ms, parse {s['parse']:.4f} "
+          f"ms, fetch {s['fetch']:.4f} ms, host emission {s['emission']:.4f} ms; the whole call "
+          f"{s['call_ms']:.4f} ms (host clock); peak {s['peak_bytes']} B allocated; card {card}")
+    p6 = prior.get("phase 6")
+    for key, label in (("l3", "level 3"), ("l1", "level 1")):
+        a = r[key]
+        was = "" if p6 is None or key != "l3" else (
+            f" (phase 6: {p6['bytes_out']} B, compress MB/s {p6['compress_mb_s']['port']:.2f}, "
+            f"decompress {p6['decompress_mb_s']['port']:.2f})")
+        print(f"phase 13: {label} under legacy: {a['bytes_in']} B -> {a['bytes_out']} B; "
+              f"compress MB/s {a['compress_mb_s']['port']:.2f}, decompress MB/s port "
+              f"{a['decompress_mb_s']['port']:.2f} host {a['decompress_mb_s']['host']:.2f}"
+              f"{was}; launches {a['launches']}; peak {a['peak_bytes']} B allocated"
+              + (f"; first two blocks equal the CPU run's ({a['cpu_head_s']:.1f} s)"
+                 if "cpu_head_s" in a else "; phase 7's stream, byte for byte")
+              + f"; card {card}")
+    a = r["real"]
+    print(f"phase 13: real_corpus(64 MiB) sha256 {a['sha256']}, sections {a['sections']} "
+          f"({a['made_s']:.1f} s); level 3 under legacy {a['bytes_out']} B (host parse "
+          f"{a['host_bytes_out']} B); compress MB/s port {a['compress_mb_s']['port']:.2f} host "
+          f"{a['compress_mb_s']['host']:.2f}; decompress MB/s port "
+          f"{a['decompress_mb_s']['port']:.2f} host {a['decompress_mb_s']['host']:.2f}; "
+          f"round-tripped; launches {a['launches']}; card {card}")
+
+
 def _family(name: str) -> str:
     """Kernel family of a device event, for the level-1 profile."""
     low = name.lower()
@@ -1928,10 +2143,14 @@ def main() -> int:
           f"three .knz files identical, -d on the card and on the host give back the input, "
           f"-y prints the header; {time.perf_counter() - t:.1f} s")
     t = time.perf_counter()
-    r = phase12_mesh(data)
-    print_phase12(r, prior)
+    r12 = phase12_mesh(data)
+    print_phase12(r12, prior)
     print(f"phase 12: done in {time.perf_counter() - t:.1f} s")
-    for step in r["launches"].values():
+    t = time.perf_counter()
+    r13 = phase13_v1(data, dev, prior)
+    print_phase13(r13, prior)
+    print(f"phase 13: done in {time.perf_counter() - t:.1f} s")
+    for step in [*r12["launches"].values(), *r13["launches"].values()]:
         for k, v in step.items():
             if k in launches:
                 launches[k] += v

@@ -506,8 +506,10 @@ class CompressedOutputStream:
     def _device_lz_batch(self, chunks):
         """One batched device LZX dispatch over all pending blocks, or None
         when there is no device, the gate is off, or the chain does not
-        start with LZ/LZX.  A failure raises: nothing falls back to the
-        host parse."""
+        start with LZ/LZX.  Any gate but "" and "0" runs it, "legacy" too,
+        as kanzi_tpu's writer does: the v1 engine is the codec's own
+        dispatch (blocks this batch's hints do not cover).  A failure
+        raises: nothing falls back to the host parse."""
         if getattr(self, "_lz_hint_fn", None) is not None:
             # a caller that ran the per-block LZ stage itself hands each
             # block its result
@@ -520,10 +522,6 @@ class CompressedOutputStream:
         first = (self.transform_type >> MAX_SHIFT) & MASK
         if first not in (LZ_TYPE, LZX_TYPE):
             return None
-        if gate == "legacy":
-            raise NotImplementedError(
-                "KANZI_TPU_DEVICE_LZ=legacy: the v1 device LZ engine is not "
-                "ported (ROADMAP M8)")
         from ..ops.lz_sort import lzx_forward_device_batch
         res = lzx_forward_device_batch(chunks, first == LZX_TYPE, 4,
                                        device=self.device)

@@ -1,8 +1,8 @@
 """Host emission of an LZX section stream from a token list, in numpy.
 
-The numpy parts of kanzi_tpu/ops/lz_tpu.py (its v1 JAX engine is not
-ported): the emitter that ops/lz_sort.py runs when the native library
-(native/lz.cpp kz_lzx_emit_tokens) is missing.  The output is a valid v7
+The numpy parts of kanzi_tpu/ops/lz_tpu.py: the emitter of the v1 engine
+(ops/lz_tpu.py), and the one that ops/lz_sort.py runs when the native
+library (native/lz.cpp kz_lzx_emit_tokens) is missing.  The output is a valid v7
 LZX section stream (LZCodec.java:144-760 semantics); its inverse is
 transforms/lz.py's.
 """

@@ -17,7 +17,8 @@ under a timeout of its own, so a hang fails instead of running on.
     python -m kanzi_tpu_torch.parallel.dryrun [--ranks N] [--device cuda|cpu]
         [--size BYTES] [--block BYTES] [--jobs N]
 
-runs ``entry``, ``dryrun_multichip`` and ``dryrun_multihost``.
+runs ``entry``, ``dryrun_multichip`` (with its scaling line) and
+``dryrun_multihost``.
 """
 
 from __future__ import annotations
@@ -235,18 +236,93 @@ def multichip_rank(mesh, size: int, block: int, jobs: int) -> dict | None:
     return rep if root else None
 
 
+def scaling_rank(mesh, nb: int, block: int, reps: int = 3) -> list:
+    """Every rank of the scaling line: its share of ``nb`` blocks of
+    ``block`` bytes of mixed_corpus(seed=5) through engine.make_l1_step, one
+    warm run, then ``reps`` runs, each started at a barrier.  Returns this
+    rank's (wall seconds, cpu seconds by os.times()) of each run."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from ..utils.corpus import mixed_corpus
+    from .engine import _l1_batch_arrays, make_l1_step
+
+    blocks = list(mixed_corpus(nb * block, seed=5).reshape(nb, block))
+    own = np.array_split(np.arange(nb), mesh.size)[mesh.rank].tolist()
+    bufs, send, mdist, _, _ = _l1_batch_arrays(blocks, own, 1)
+    step = make_l1_step(mesh, 4)
+    step(bufs, send, mdist)
+    runs = []
+    for _ in range(reps):
+        dist.barrier(group=mesh.group)
+        c0, t0 = os.times(), time.perf_counter()
+        step(bufs, send, mdist)         # ends in a gather: every rank is done
+        dt, c1 = time.perf_counter() - t0, os.times()
+        runs.append((dt, (c1.user + c1.system) - (c0.user + c0.system)))
+    return runs
+
+
+def scaling(n_devices: int, device: str, block: int, timeout: float) -> dict:
+    """The sharded LZX stage on the same total work, max(n, 8) blocks, at 1
+    rank (a world of its own), at 2 on ``cpu``, and at ``n_devices``; each
+    world's best run of rank 0 and the cpu seconds of that run, rank 0's
+    and all ranks' together.  Prints the scaling line: t1, tN, the
+    efficiency t1 / (n tN) against its ceiling (on ``cpu`` the ranks share
+    the host's cores: min(cores, n) / n; on ``cuda`` each rank has a card:
+    1.0), and on ``cpu`` the 2-rank attribution of the loss."""
+    from ..utils.device import check_device
+
+    cuda = check_device(device).type == "cuda"
+    nb = max(n_devices, 8)
+    worlds = sorted({1, n_devices} | (set() if cuda else {min(2, n_devices)}))
+    res = {}
+    for w in worlds:
+        ranks = spawn("kanzi_tpu_torch.parallel.dryrun:scaling_rank", w, device, (nb, block),
+                      timeout=timeout)
+        best = min(range(len(ranks[0])), key=lambda i: ranks[0][i][0])
+        res[w] = {"t": ranks[0][best][0], "runs": [r[0] for r in ranks[0]],
+                  "cpu_s": ranks[0][best][1], "cpu_s_all": sum(r[best][1] for r in ranks)}
+    cores = os.cpu_count() or 1
+    t1, tn = res[1]["t"], res[n_devices]["t"]
+    raw = t1 / (n_devices * tn)
+    ceiling = 1.0 if cuda else min(cores, n_devices) / n_devices
+    out = {"work_bytes": nb * block, "blocks": nb, "worlds": res, "t1": t1, "tN": tn,
+           "raw": raw, "ceiling": ceiling, "efficiency": min(raw / ceiling, 1.0)}
+    note = (f"raw {raw:.3f} vs ceiling {ceiling:.2f}: "
+            + ("one card a rank" if cuda else f"{n_devices} ranks share {cores} host cores")
+            + "; rank 0 cpu-s a run " + ", ".join(f"{w}: {res[w]['cpu_s']:.3f}" for w in worlds))
+    if 2 in res and n_devices > 2:
+        c1, c2 = res[1]["cpu_s_all"], res[2]["cpu_s_all"]
+        raw2 = t1 / (2 * res[2]["t"])
+        cores1, cores2 = c1 / t1, c2 / res[2]["t"]
+        # raw2 = work-efficiency x cores2 / (2 cores1), exactly: sharding's
+        # extra work, and the 1-rank world's intra-op threads, which already
+        # busy several cores (a rank of a card cannot borrow another card)
+        out["attribution"] = {"raw2": raw2, "work_efficiency": c1 / c2,
+                              "cores_busy_1": cores1, "cores_busy_2": cores2}
+        note += (f"; 2-rank raw {raw2:.3f} at ceiling 1.0 = work-efficiency {c1 / c2:.3f} "
+                 f"(cpu-s of all ranks {c1:.3f} -> {c2:.3f}) x cores busy {cores2:.2f} / "
+                 f"(2 x {cores1:.2f} at 1 rank, torch's intra-op threads)")
+    print(f"scaling [{(nb * block) >> 20} MiB sharded LZX stage, {nb} blocks, {device}]: "
+          f"t1={t1:.4f}s tN={tn:.4f}s | scaling efficiency={out['efficiency']:.3f} "
+          f"({note})", flush=True)
+    return out
+
+
 def dryrun_multichip(n_devices: int, device: str, *, size: int = 64 << 20,
                      block: int = 1 << 20, jobs: int | None = None,
                      timeout: float = 1800.0) -> dict:
     """``n_devices`` ranks (gloo on ``cpu``; NCCL on ``cuda``, one card a
     rank, more ranks than cards raise) run level 1, the ANS0 stage and level
     5 over ``size`` bytes in ``block``-byte blocks, ``jobs`` blocks a write
-    (default: one a rank, as kanzi_tpu's dry run), each round-tripped.
-    Prints and returns rank 0's report."""
+    (default: one a rank, as kanzi_tpu's dry run), each round-tripped; then
+    the scaling line of the sharded LZX stage on ``block``-byte blocks.
+    Prints and returns rank 0's report, the scaling under "scaling"."""
     rep = spawn("kanzi_tpu_torch.parallel.dryrun:multichip_rank", n_devices, device,
                 (size, block, jobs or n_devices), timeout=timeout)[0]
     for k in ("l1", "ans0", "l5"):
         print(f"dryrun_multichip({n_devices}, {device}): {k} {rep[k]}", flush=True)
+    rep["scaling"] = scaling(n_devices, device, block, timeout)
     return rep
 
 

@@ -54,19 +54,21 @@ class LZXCodec:
             if hint[1] is None:
                 raise TransformSkip("LZX: no gain")
             return hint[1]
-        # the device parse (ops/lz_sort.py) on the stream's torch device,
-        # opt-in with KANZI_TPU_DEVICE_LZ; with no device (the host coders)
+        # the device parse on the stream's torch device, opt-in with
+        # KANZI_TPU_DEVICE_LZ: ops/lz_sort.py, or the v1 engine
+        # (ops/lz_tpu.py) under "legacy"; with no device (the host coders)
         # the variable is ignored
         device = (self.ctx or {}).get("_device")
         gate = os.environ.get("KANZI_TPU_DEVICE_LZ", "0")
         if device is not None and gate != "0" and count >= 4096:
             if gate == "legacy":
-                raise NotImplementedError(
-                    "KANZI_TPU_DEVICE_LZ=legacy: the v1 device LZ engine is "
-                    "not ported (ROADMAP M8)")
-            from ..ops.lz_sort import lzx_forward_device_v2
-            res = lzx_forward_device_v2(src, self.extra, min_match,
-                                        device=device)
+                from ..ops.lz_tpu import lzx_forward_device
+                res = lzx_forward_device(src, self.extra, min_match,
+                                         device=device)
+            else:
+                from ..ops.lz_sort import lzx_forward_device_v2
+                res = lzx_forward_device_v2(src, self.extra, min_match,
+                                            device=device)
             if res is None:
                 raise TransformSkip("LZX: no gain")
             return res

@@ -9,14 +9,20 @@ two runs (and any two machines) benchmark the same bytes.
 
 This intentionally does NOT repeat a small sample N times: repetition makes
 match-heavy stages (LZ, BWT) look absurdly good (VERDICT r1, weak #7).
+
+``real_corpus`` is kanzi_tpu's real-file corpus: files of the machine it
+runs on, in silesia's data classes.
 """
 
 from __future__ import annotations
 
+import hashlib
+import os
+
 import numpy as np
 
-__all__ = ["mixed_corpus", "text_like", "xml_like", "exe_like", "dna_like",
-           "numeric_like"]
+__all__ = ["mixed_corpus", "real_corpus", "text_like", "xml_like", "exe_like",
+           "dna_like", "numeric_like"]
 
 _LETTERS = np.frombuffer(b"abcdefghijklmnopqrstuvwxyz", dtype=np.uint8)
 
@@ -176,3 +182,108 @@ def mixed_corpus(size: int, seed: int = 42,
             out.append(q.pop(0))
         queues = [q for q in queues if q]
     return np.concatenate(out)[:size]
+
+
+# ---------------------------------------------------------------------------
+# realistic corpus: real files of the machine it runs on (silesia-style mix)
+# ---------------------------------------------------------------------------
+#
+# kanzi_tpu/utils/corpus.py's _REAL_SECTIONS, _collect_section and
+# real_corpus.  The reference's published numbers are on silesia.tar /
+# enwik8 (README.md:69-115): real text, executables, databases, XML.  No such
+# archive ships with the repo, so this is a frozen, deterministic
+# concatenation of real files of the machine: source text, C headers, a
+# large ELF, XML, CSV table data, and dense numeric library binaries.  The
+# SHA-256 pins the instrument.  numpy's bundled libraries are found beside
+# the numpy package, where kanzi_tpu names that directory of its machine.
+
+_NUMPY_LIBS = os.path.join(os.path.dirname(os.path.dirname(np.__file__)), "numpy.libs")
+
+_REAL_SECTIONS = (
+    # (name, roots, suffixes, cap bytes)
+    ("pysrc", ("/usr/local/lib/python3.12",), (".py",), 16 << 20),
+    ("headers", ("/usr/include",), (".h", ".hpp"), 8 << 20),
+    ("elf", ("/usr/lib/x86_64-linux-gnu/libLLVM-15.so.1",), None, 16 << 20),
+    ("xml", ("/usr/share/xml", "/usr/share/gdal"), (".xml",), 6 << 20),
+    ("csv", ("/usr/share/gdal",), (".csv",), 4 << 20),
+    ("numlib", (_NUMPY_LIBS,), (".so",), 8 << 20),
+    ("bin", ("/usr/bin",), None, 6 << 20),
+)
+
+
+def _collect_section(roots, suffixes, cap: int) -> np.ndarray:
+    parts = []
+    total = 0
+    for root in roots:
+        if total >= cap:
+            break
+        if os.path.isfile(root):
+            files = [root]
+        else:
+            files = []
+            for base, dirs, names in os.walk(root):
+                dirs.sort()
+                for nm in sorted(names):
+                    if suffixes is None or nm.endswith(suffixes):
+                        files.append(os.path.join(base, nm))
+        for f in files:
+            if total >= cap:
+                break
+            try:
+                if os.path.islink(f) or not os.path.isfile(f):
+                    continue
+                with open(f, "rb") as fh:
+                    b = fh.read(cap - total)
+            except OSError:
+                continue
+            if b:
+                parts.append(np.frombuffer(b, dtype=np.uint8))
+                total += len(b)
+    if not parts:
+        return np.zeros(0, np.uint8)
+    return np.concatenate(parts)[:cap]
+
+
+_REAL_CACHE: dict[int, tuple[np.ndarray, str, dict]] = {}
+
+
+def real_corpus(size: int = 64 << 20):
+    """A frozen silesia-style corpus of real files of the machine.
+
+    Returns (data uint8[size], sha256 hex, {section: bytes contributed}).
+    Sections are interleaved in 1 MiB extents like mixed_corpus, so every
+    block of any reasonable block size sees several data classes; a box too
+    bare for ``size`` bytes is tiled.  Missing roots contribute nothing
+    (the SHA pins whatever mix was assembled); with no root at all the
+    corpus is mixed_corpus(size), breakdown {"synthetic": size}.  That is
+    kanzi_tpu's behaviour, which this copy keeps: the corpus it measures,
+    not a device fallback.
+    """
+    if size in _REAL_CACHE:
+        return _REAL_CACHE[size]
+    parts = []
+    breakdown = {}
+    for name, roots, suffixes, cap in _REAL_SECTIONS:
+        sec = _collect_section(roots, suffixes, cap)
+        if sec.size:
+            parts.append(sec)
+            breakdown[name] = int(sec.size)
+    if not parts:
+        data = mixed_corpus(size)
+        sha = hashlib.sha256(data.tobytes()).hexdigest()
+        _REAL_CACHE[size] = (data, sha, {"synthetic": size})
+        return _REAL_CACHE[size]
+    ext = 1 << 20
+    queues = [[p[i:i + ext] for i in range(0, p.size, ext)] for p in parts]
+    out = []
+    while queues:
+        for q in queues:
+            out.append(q.pop(0))
+        queues = [q for q in queues if q]
+    data = np.concatenate(out)
+    if data.size < size:
+        data = np.tile(data, -(-size // data.size))
+    data = data[:size].copy()
+    sha = hashlib.sha256(data.tobytes()).hexdigest()
+    _REAL_CACHE[size] = (data, sha, breakdown)
+    return _REAL_CACHE[size]

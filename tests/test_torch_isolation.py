@@ -38,12 +38,14 @@ print("ok")
     ("DNA+LZ", "HUFFMAN", 300000, 1 << 18, "0"),
     ("TEXT+UTF+PACK+MM+LZX", "HUFFMAN", 300000, 1 << 18, "0"),
     ("LZX", "NONE", 300000, 1 << 17, "1"),
-], ids=["level5", "level2", "level3", "level1_device_lz"])
+    ("TEXT+UTF+PACK+MM+LZX", "HUFFMAN", 300000, 1 << 18, "legacy"),
+], ids=["level5", "level2", "level3", "level1_device_lz", "level3_legacy_lz"])
 def test_level5_round_trip_without_jax(transform, entropy, size, block, device_lz):
     """A fresh process, which loads no jax and no kanzi_tpu module
     (tests/conftest.py imports jax into this one).  The Huffman levels'
     blocks hold enough full chunks for the device encode and decode paths,
-    and level 1 runs the device LZ engine (their plain versions here)."""
+    level 1 runs the device LZ engine and level 3 under "legacy" the v1
+    engine (their plain versions here)."""
     env = dict(os.environ, KANZI_TPU_DEVICE_LZ=device_lz)
     res = subprocess.run([sys.executable, "-c", _ROUND_TRIP, transform, entropy,
                           str(size), str(block)], cwd=ROOT, capture_output=True,
@@ -151,7 +153,8 @@ def test_no_jax_import_in_package():
     files = [os.path.join(d, f) for d, _, fs in os.walk(PKG) for f in fs
              if f.endswith(".py")]
     assert len(files) >= 8
-    for new in ("ops/ans1_cuda.py", "ops/ksort.py", "ops/bwt_device.py", "app/__main__.py"):
+    for new in ("ops/ans1_cuda.py", "ops/ksort.py", "ops/bwt_device.py", "ops/lz_tpu.py",
+                "app/__main__.py"):
         assert os.path.join(PKG, *new.split("/")) in files
     for path in files:
         with open(path) as fh:

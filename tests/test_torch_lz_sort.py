@@ -259,9 +259,3 @@ def test_device_lz_stream_matches(level, ref, monkeypatch):
     monkeypatch.delenv("KANZI_TPU_DEVICE_LZ")
     assert _stream(port, data, ctx, device="cpu") == parse
 
-
-def test_legacy_engine_not_ported(monkeypatch):
-    monkeypatch.setenv("KANZI_TPU_DEVICE_LZ", "legacy")
-    ctx = {"transform": "LZX", "entropy": "NONE", "blockSize": 1 << 16}
-    with pytest.raises(NotImplementedError, match="M8"):
-        _stream(port, mixed_corpus(70_000, seed=2).tobytes(), ctx, device="cpu")

@@ -7,6 +7,7 @@ card that is not there.  Every rank is a spawned gloo process on the CPU.
 from __future__ import annotations
 
 import os
+import re
 import time
 
 import numpy as np
@@ -26,14 +27,27 @@ def test_dryrun_multihost_two_ranks():
     assert "equal to the host encoder's" in lines[0] and "round-trip ok" in lines[0]
 
 
-def test_dryrun_multichip_small():
+def test_dryrun_multichip_small(capsys):
     """Level 1, the ANS0 stage and level 5 over two ranks, each round-tripped
-    by rank 0 (at a small size: the plain versions run on the CPU)."""
+    by rank 0 (at a small size: the plain versions run on the CPU), then the
+    scaling line of the sharded LZX stage at 1 and 2 ranks."""
     rep = dryrun.dryrun_multichip(2, "cpu", size=512 << 10, block=256 << 10, timeout=300)
     assert rep["ranks"] == 2 and rep["backend"] == "gloo"
     assert rep["l1"]["bytes_out"] < rep["l1"]["bytes_in"]
     assert rep["l5"]["bytes_out"] < rep["l5"]["bytes_in"]
     assert rep["stats"]["sa lengths"][1] > 0 and rep["stats"]["encode payloads"][1] > 0
+    line = [ln for ln in capsys.readouterr().out.splitlines() if ln.startswith("scaling [")]
+    assert len(line) == 1, line
+    m = re.match(r"scaling \[2 MiB sharded LZX stage, 8 blocks, cpu\]: t1=([0-9.]+)s "
+                 r"tN=([0-9.]+)s \| scaling efficiency=([0-9.]+) \(raw ([0-9.]+) vs ceiling "
+                 r"([0-9.]+): .*rank 0 cpu-s a run 1: [0-9.]+, 2: [0-9.]+", line[0])
+    assert m, line[0]
+    t1, tn, eff, raw, ceiling = map(float, m.groups())
+    sc = rep["scaling"]
+    assert t1 > 0 and tn > 0 and 0 < eff <= 1.0 and ceiling == min(os.cpu_count(), 2) / 2
+    assert sc["blocks"] == 8 and sorted(sc["worlds"]) == [1, 2]
+    assert abs(sc["t1"] - t1) < 1e-3 and abs(sc["tN"] - tn) < 1e-3
+    assert all(len(w["runs"]) == 3 and w["t"] == min(w["runs"]) for w in sc["worlds"].values())
 
 
 def _rank_make_mesh(mesh, n):
