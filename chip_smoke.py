@@ -127,13 +127,30 @@ Phases, one line each; any failure raises and the exit code is not 0:
      writer's v3 batch and writes phase 7's bytes; and real_corpus(64
      MiB), its sha256 and sections, through level 3 under legacy against
      the host coders, round-tripped
+ 14  the device LZ paths beside phase 7, on the same 64 MiB under
+     KANZI_TPU_DEVICE_LZ=1, each stream decoded on the card and by the host
+     coders, beside the host parse: level 1 at 32 MiB blocks (the windowed
+     256 KiB-row engine: its first group of 24 rows on the card equal to
+     the CPU's, lz_words at (24, 262144) against its plain version and
+     timed, one lz_words a group, 15 groups) and at 16 MiB (MAX_FLAT: one
+     flat dispatch of (4, 2^24), its first block equal to a CPU run);
+     levels 2 (DNA+LZ) and 3 at 4 MiB blocks, jobs 8 (the codec's dispatch,
+     one call a block from the pool's threads: one lz_words a block that
+     reached the engine, the first two blocks equal to a CPU run, the
+     stream equal to the card's at jobs 1); level 1 at 4 MiB blocks
+     beside them (phase 7's path and bytes, the comparator timed in this
+     phase); MB/s, bytes and peak allocation of each, and for the level-1
+     streams three compresses, each with the allocator's bytes, cudaMalloc
+     calls and retries, and the host seconds of each dispatch and flat
+     analysis
 The launch counts are set to 0 just before each of phases 3-9, each step
-of phase 12 and each stream of phase 13 and read just after it; the
-counts of phases 12 and 13 join the kernels line's.  Then the card line,
+of phase 12 and each stream of phases 13 and 14 and read just after it;
+the counts of phases 12-14 join the kernels line's.  Then the card line,
 one JSON line of the kernels (each with its bound: the larger of its bytes
 over 3.35 TB/s and its integer operations over 67 T/s), and the result
 line.
-``--mesh`` runs phases 0-1 and 12 only and prints no result line.
+``--mesh`` runs phases 0-1 and 12 only and prints no result line;
+``--phase14`` runs phases 0-1 and 14 the same way.
 ``--quick`` stops after phase 2 and prints no result line, for the first
 call after a kernel changes; ``--phase2 ans0,huffman`` (any of floor, ans0,
 huffman, lz_words, ans1, ksort, and ans1_compact: the compaction's part of
@@ -1864,6 +1881,277 @@ def print_phase13(r: dict, prior: dict) -> None:
           f"round-tripped; launches {a['launches']}; card {card}")
 
 
+# phase 14: the device LZ paths phase 7 does not take, under KANZI_TPU_DEVICE_LZ=1
+LEVEL2 = ("DNA+LZ", "HUFFMAN")
+WINDOW_BLOCK = 32 << 20    # over MAX_FLAT: the windowed 256 KiB-row engine
+MAX_FLAT_BLOCK = 16 << 20  # MAX_FLAT: the flat engine's largest bucket
+
+
+def first_group(block: bytes, dev) -> dict:
+    """The windowed engine's first group (GROUP_ROWS rows of ``block`` in
+    _block_rows' layout) through _match_stage and _parse_stage on the card
+    and on the CPU: (pk, dist) must be equal.  Then lz_words at that group's
+    shape against its plain version on the card, and timed."""
+    import numpy as np
+    import torch
+
+    from kanzi_tpu_torch.ops import lz_sort as T
+    from kanzi_tpu_torch.ops import lz_words_cuda as L
+
+    parts = T._block_rows(np.frombuffer(block, np.uint8))
+    grp = [np.ascontiguousarray(a[:T.GROUP_ROWS]) for a in parts]
+
+    def run(device):
+        pk, dist, k = T._parse_stage(*T._match_stage(
+            *(torch.from_numpy(a).to(device) for a in grp), 4), 4)
+        return pk.cpu(), dist.cpu(), k
+
+    got = run(dev)
+    t = time.perf_counter()
+    want = run("cpu")
+    cpu_s = time.perf_counter() - t
+    check(got[2] == want[2] > 0 and torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+          "phase 14: the windowed engine's first group on the card differs from the CPU's")
+    x = torch.from_numpy(grp[0]).to(dev)
+    ws, ref = L.lz_words(x), L.lz_words_ref(x)
+    check(all(torch.equal(g, w) for g, w in zip(ws, ref)),
+          f"phase 14: lz_words at {tuple(x.shape)} differs from its plain version")
+    rec = {"lz_words": {"max_abs_err": max_abs_err(ws, ref)}}
+    timed(rec, "lz_words", lambda: L.lz_words(x), lambda: L.lz_words_ref(x), x, x.numel())
+    return {"rows": grp[0].shape[0], "tokens": got[2], "cpu_s": cpu_s,
+            "lz_words": rec["lz_words"]}
+
+
+def _mem() -> dict:
+    """The caching allocator's readings: bytes allocated and reserved, and
+    its counts of cudaMalloc calls and of retries after a failed one (each
+    retry frees the cache and synchronises)."""
+    import torch
+
+    st = torch.cuda.memory_stats()
+    return {"alloc": torch.cuda.memory_allocated(), "reserved": torch.cuda.memory_reserved(),
+            "mallocs": st.get("num_device_alloc", 0), "retries": st.get("num_alloc_retries", 0)}
+
+
+def lz_stream(label: str, data: bytes, chain: tuple, block: int, dev, head: int,
+              kernels: tuple, repeats: int = 2, serial: bool = False) -> dict:
+    """One stream of ``chain`` (transform, entropy) at ``block``-byte
+    blocks, jobs 8, under KANZI_TPU_DEVICE_LZ=1, removed afterwards.  The
+    launch counts are set to 0 just before the port's first compress and
+    read just after its decode on the card; each of ``kernels`` has to have
+    run.  ``repeats`` compresses on the card in all, each timed and each
+    writing the same bytes; around each, the allocator's readings (_mem),
+    its peak, and the host seconds of every engine dispatch
+    (lzx_forward_device_batch, emission included) and of every flat
+    analysis in it (_analyze_flat, which ends in a sync on its token
+    count).  lz_words' launch shapes and the blocks the codec hands to
+    lzx_forward_device_v2 are recorded by wrappers that call the originals.
+    The first ``head`` blocks must equal a run of the port on the CPU; the
+    stream must decode on the card and with the host coders; the host
+    coders' compress stands beside it.  ``serial``: the stream must also
+    equal the card's at jobs 1, where no two blocks' device calls
+    overlap."""
+    import torch
+
+    from kanzi_tpu_torch.io import stream as port
+    from kanzi_tpu_torch.ops import launch
+    from kanzi_tpu_torch.ops import lz_sort as T
+
+    ctx = {"transform": chain[0], "entropy": chain[1], "blockSize": block, "jobs": 8}
+    mb = len(data) / 1e6
+    shapes, v2_sizes, batch_s, analyze_s = [], [], [], []
+    orig = (T.lz_words, T.lzx_forward_device_v2, T.lzx_forward_device_batch, T._analyze_flat)
+    words, v2, batch, analyze = orig
+
+    def words_seen(bufs):
+        shapes.append(tuple(bufs.shape))
+        return words(bufs)
+
+    def v2_seen(src, *a, **kw):
+        v2_sizes.append(len(src))
+        return v2(src, *a, **kw)
+
+    def clocked(fn, into):
+        def run(*a, **kw):
+            t = time.perf_counter()
+            res = fn(*a, **kw)
+            into.append(time.perf_counter() - t)
+            return res
+        return run
+
+    def compress() -> tuple:
+        del batch_s[:], analyze_s[:]
+        torch.cuda.synchronize()
+        m0 = _mem()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        out = _compress(port.CompressedOutputStream, data, ctx, device=dev)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t
+        m1 = _mem()
+        return out, {"mb_s": mb / sec,
+                     "peak": torch.cuda.max_memory_allocated() - m0["alloc"],
+                     "alloc": [m0["alloc"], m1["alloc"]],
+                     "reserved": [m0["reserved"], m1["reserved"]],
+                     "mallocs": m1["mallocs"] - m0["mallocs"],
+                     "retries": m1["retries"] - m0["retries"],
+                     "batch_s": list(batch_s), "analyze_s": list(analyze_s)}
+
+    r: dict = {"bytes_in": len(data), "head": head}
+    os.environ["KANZI_TPU_DEVICE_LZ"] = "1"
+    T.lz_words, T.lzx_forward_device_v2 = words_seen, v2_seen
+    T.lzx_forward_device_batch = clocked(batch, batch_s)
+    T._analyze_flat = clocked(analyze, analyze_s)
+    try:
+        launch.reset_launches()
+        blob, first = compress()
+        t = time.perf_counter()
+        got = _decompress(port.CompressedInputStream, blob, 8, device=dev)
+        torch.cuda.synchronize()
+        port_d = time.perf_counter() - t
+        r["launches"] = {k: launch.launches[k] for k in kernels}
+        r["shapes"] = sorted(set(shapes))
+        r["v2_blocks"] = len(v2_sizes)
+        check(got == data, f"phase 14: {label}: the port's decode on the card differs")
+        check(all(v > 0 for v in r["launches"].values()),
+              f"phase 14: {label}: a kernel never ran: {r['launches']}")
+        r["runs"] = [first]
+        for _ in range(repeats - 1):
+            again, run = compress()
+            check(again == blob, f"phase 14: {label}: a compress on the card differs")
+            r["runs"].append(run)
+        if head:
+            t = time.perf_counter()
+            cpu = _compress(port.CompressedOutputStream, data[:head * block], ctx, device="cpu")
+            r["cpu_head_s"] = time.perf_counter() - t
+            check(first_frames(blob, head) == first_frames(cpu, head),
+                  f"phase 14: {label}: the first {head} blocks differ from the port's CPU run")
+        if serial:
+            t = time.perf_counter()
+            one = _compress(port.CompressedOutputStream, data, dict(ctx, jobs=1), device=dev)
+            torch.cuda.synchronize()
+            r["serial_compress_mb_s"] = mb / (time.perf_counter() - t)
+            check(one == blob, f"phase 14: {label}: the stream at jobs 8 differs from jobs 1's")
+    finally:
+        (T.lz_words, T.lzx_forward_device_v2, T.lzx_forward_device_batch,
+         T._analyze_flat) = orig
+        del os.environ["KANZI_TPU_DEVICE_LZ"]
+    t = time.perf_counter()
+    got = _decompress(port.CompressedInputStream, blob, 8, device=None)
+    host_d = time.perf_counter() - t
+    check(got == data, f"phase 14: {label}: the host coders' decode differs")
+    t = time.perf_counter()
+    ref = _compress(port.CompressedOutputStream, data, ctx, device=None)
+    host_c = time.perf_counter() - t
+    r.update(bytes_out=len(blob), host_bytes_out=len(ref),
+             sha256=hashlib.sha256(blob).hexdigest(), peak_bytes=first["peak"],
+             compress_mb_s={"port": first["mb_s"], "host": mb / host_c},
+             decompress_mb_s={"port": mb / port_d, "host": mb / host_d})
+    return r
+
+
+def phase14_lz(data: bytes, dev, prior: dict) -> dict:
+    """Level 1 at 4 MiB blocks (phase 7's path, this phase's comparator:
+    its bytes equal phase 7's where phase 7 ran), at 32 MiB (the windowed
+    row engine: its first group against the CPU, lz_words once a group at
+    (bucket, 262144)) and at 16 MiB (MAX_FLAT: four blocks in one flat
+    dispatch), three compresses each; levels 2 and 3 at 4 MiB blocks (the
+    codec's per-block dispatch from eight pool threads: one lz_words a
+    block that reached the engine)."""
+    from kanzi_tpu_torch.ops import lz_sort as T
+
+    out: dict = {"first_group": first_group(data[:WINDOW_BLOCK], dev)}
+    l1 = ("LZX", "NONE")
+    c = lz_stream("level 1 at 4 MiB blocks", data, l1, BLOCK, dev, 2, LZ_KERNELS, repeats=3)
+    if "phase 7" in prior:
+        check(c["bytes_out"] == prior["phase 7"]["bytes_out"],
+              f"phase 14: level 1 at 4 MiB: {c['bytes_out']} B, phase 7 wrote "
+              f"{prior['phase 7']['bytes_out']} B")
+    out["l1_4m"] = c
+    w = lz_stream("level 1 at 32 MiB blocks", data, l1, WINDOW_BLOCK, dev, 0, LZ_KERNELS,
+                  repeats=3)
+    rows = sum(-(-min(WINDOW_BLOCK, len(data) - i) // T.STRIDE)
+               for i in range(0, len(data), WINDOW_BLOCK))
+    groups = -(-rows // T.GROUP_ROWS)
+    check(w["launches"]["lz_words"] == groups,
+          f"phase 14: level 1 at 32 MiB: {w['launches']} for {groups} groups of {rows} rows")
+    check(all(s[1] == T.ROW and s[0] in (4, 12, T.GROUP_ROWS) for s in w["shapes"]),
+          f"phase 14: level 1 at 32 MiB: lz_words at {w['shapes']}")
+    w.update(rows=rows, groups=groups)
+    out["l1_32m"] = w
+    f = lz_stream("level 1 at 16 MiB blocks", data, l1, MAX_FLAT_BLOCK, dev, 1, LZ_KERNELS,
+                  repeats=3)
+    nb = 1 << (-(-len(data) // MAX_FLAT_BLOCK) - 1).bit_length()   # padded to a power of 2
+    check(f["launches"]["lz_words"] == 1 and f["shapes"] == [(nb, MAX_FLAT_BLOCK)],
+          f"phase 14: level 1 at 16 MiB is not one flat dispatch of {nb} blocks: "
+          f"{f['launches']} at {f['shapes']}")
+    out["l1_16m"] = f
+    for key, label, chain in (("l2", "level 2", LEVEL2), ("l3", "level 3", LEVEL3)):
+        a = lz_stream(label, data, chain, BLOCK, dev, 2, LZ_KERNELS + HUFFMAN_KERNELS,
+                      serial=True)
+        check(a["launches"]["lz_words"] == a["v2_blocks"] > 0,
+              f"phase 14: {label}: {a['launches']['lz_words']} lz_words launches for "
+              f"{a['v2_blocks']} blocks through the device LZ")
+        out[key] = a
+    out["launches"] = {k: out[k]["launches"] for k in ("l1_4m", "l1_32m", "l1_16m", "l2", "l3")}
+    return out
+
+
+def _run_text(u: dict) -> str:
+    """One compress of lz_stream: MB/s, the allocator, the dispatches."""
+    gb = lambda v: f"{v / 1e9:.3f}"
+    text = (f"{u['mb_s']:.2f} MB/s, allocated {gb(u['alloc'][0])}->{gb(u['alloc'][1])} GB, "
+            f"reserved {gb(u['reserved'][0])}->{gb(u['reserved'][1])} GB, peak "
+            f"{gb(u['peak'])} GB, {u['mallocs']} cudaMalloc, {u['retries']} retries")
+    if u["batch_s"]:
+        text += (f", {len(u['batch_s'])} dispatch(es) "
+                 f"{sum(u['batch_s']):.3f} s (longest {max(u['batch_s']):.3f})")
+    if u["analyze_s"]:
+        text += f", flat analyses {' '.join(f'{v:.3f}' for v in u['analyze_s'])} s"
+    return text
+
+
+def print_phase14(r: dict, prior: dict) -> None:
+    card = card_line()
+    g = r["first_group"]
+    k = g["lz_words"]
+    print(f"phase 14: the windowed engine's first group ({g['rows']} rows of 256 KiB) on the "
+          f"card equals the CPU's: {g['tokens']} tokens ({g['cpu_s']:.1f} s on the CPU); "
+          f"lz_words at ({g['rows']}, 262144) bit-equal to its plain version: kernel "
+          f"{k['ms']:.4f} ms ({k['device_ms']:.4f} on the card alone), plain "
+          f"{k['plain_ms']:.4f} ms, bound {k['bound_ms']:.4f} ms ({k['bound_by']}); card {card}")
+    base = r["l1_4m"]["runs"]
+    for key, label, ph in (
+            ("l1_4m", "level 1 at 4 MiB blocks (flat, phase 7's path)", "phase 7"),
+            ("l1_32m", "level 1 at 32 MiB blocks (windowed rows)", "phase 7"),
+            ("l1_16m", "level 1 at 16 MiB blocks (flat, MAX_FLAT)", "phase 7"),
+            ("l2", "level 2 (DNA+LZ), the codec's dispatch", None),
+            ("l3", "level 3, the codec's dispatch", "phase 6")):
+        a, p = r[key], prior.get(ph)
+        side = "" if ph is None else f" ({ph}: not run)" if p is None else (
+            f" ({ph}: {p['bytes_out']} B, compress MB/s {p['compress_mb_s']['port']:.2f}, "
+            f"decompress {p['decompress_mb_s']['port']:.2f})")
+        extra = (f"; {a['rows']} rows in {a['groups']} groups" if "groups" in a else "") + (
+            f"; {a['v2_blocks']} blocks through the device LZ" if a["v2_blocks"] else "")
+        head = "" if "cpu_head_s" not in a else (
+            f"; its first {a['head']} block(s) equal the port's CPU run ({a['cpu_head_s']:.1f} s)")
+        if "serial_compress_mb_s" in a:
+            head += (f"; equal to the card's stream at jobs 1 (compress MB/s "
+                     f"{a['serial_compress_mb_s']:.2f})")
+        rates = [u["mb_s"] for u in a["runs"]]
+        ratio = " ".join(f"{u / v['mb_s']:.3f}" for u, v in zip(rates, base))
+        print(f"phase 14: {label}: {a['bytes_in']} B -> {a['bytes_out']} B (host parse "
+              f"{a['host_bytes_out']} B){side}; compress MB/s port "
+              f"{' '.join(f'{v:.2f}' for v in rates)} ({ratio} x the 4 MiB stream's "
+              f"compress of the same rank) host {a['compress_mb_s']['host']:.2f}; "
+              f"decompress MB/s port {a['decompress_mb_s']['port']:.2f} host "
+              f"{a['decompress_mb_s']['host']:.2f}; launches {a['launches']} at "
+              f"{a['shapes']}{extra}; peak {a['peak_bytes']} B allocated{head}; decoded on "
+              f"the card and by the host coders; card {card}")
+        for i, u in enumerate(a["runs"]):
+            print(f"phase 14: {label}: compress {i + 1}: {_run_text(u)}")
+
+
 def _family(name: str) -> str:
     """Kernel family of a device event, for the level-1 profile."""
     low = name.lower()
@@ -1946,6 +2234,8 @@ def main() -> int:
                     help="profile one level-1 compress after phase 1, then stop")
     ap.add_argument("--mesh", action="store_true",
                     help="run phases 0-1 and 12 (the multi-GPU engine) only")
+    ap.add_argument("--phase14", action="store_true",
+                    help="run phases 0-1 and 14 (the device LZ paths beside phase 7) only")
     ap.add_argument("--phase2", metavar="GROUPS",
                     help="run only these comma-separated phase-2 groups (of "
                          f"{', '.join(PHASE2_GROUPS)}), then stop")
@@ -1988,6 +2278,11 @@ def main() -> int:
         t = time.perf_counter()
         print_phase12(phase12_mesh(data), {})
         print(f"phase 12: done in {time.perf_counter() - t:.1f} s")
+        return 0
+    if args.phase14:
+        t = time.perf_counter()
+        print_phase14(phase14_lz(data, dev, {}), {})
+        print(f"phase 14: done in {time.perf_counter() - t:.1f} s")
         return 0
     if args.profile:
         print(card_line())
@@ -2150,7 +2445,14 @@ def main() -> int:
     r13 = phase13_v1(data, dev, prior)
     print_phase13(r13, prior)
     print(f"phase 13: done in {time.perf_counter() - t:.1f} s")
-    for step in [*r12["launches"].values(), *r13["launches"].values()]:
+    t = time.perf_counter()
+    r14 = phase14_lz(data, dev, prior)
+    print_phase14(r14, prior)
+    print(f"phase 14: done in {time.perf_counter() - t:.1f} s")
+    kern["lz_words"]["at"] = {f"({r14['first_group']['rows']}, 262144)":
+                              r14["first_group"]["lz_words"]}
+    for step in [*r12["launches"].values(), *r13["launches"].values(),
+                 *r14["launches"].values()]:
         for k, v in step.items():
             if k in launches:
                 launches[k] += v

@@ -6,10 +6,11 @@ merge and parse stages against kanzi_tpu's; and whole LZX section streams
 of ``lzx_forward_device_batch`` (flat engine) and of the windowed row
 engine against kanzi_tpu's, run with KANZI_TPU_PALLAS_INTERPRET=1 so its
 words come from the Pallas kernel.  Zero tolerance: every comparison is
-exact.  Then levels 1 and 3 as streams under KANZI_TPU_DEVICE_LZ=1 against
-kanzi_tpu's under the same variable.  kanzi_tpu compiles once per shape
-(~15-40 s here), so the cases share three shapes, and its engine results
-are computed once per module.
+exact.  Then levels 1, 2 and 3 as streams under KANZI_TPU_DEVICE_LZ=1
+against kanzi_tpu's under the same variable, and the windowed engine's
+group loop across two blocks.  kanzi_tpu compiles once per shape (~15-40 s
+here), so the cases share four shapes, and its engine results are
+computed once per module.
 """
 
 from __future__ import annotations
@@ -27,6 +28,7 @@ from kanzi_tpu.ops import lz_sort as J
 from kanzi_tpu_torch.io import stream as port
 from kanzi_tpu_torch.ops import lz_sort as T
 from kanzi_tpu_torch.ops import lz_words_cuda as W
+from kanzi_tpu_torch.utils import native_transforms as nt
 from kanzi_tpu_torch.utils.corpus import dna_like, mixed_corpus, text_like
 
 N = 1 << 18
@@ -216,7 +218,6 @@ def test_row_engine_matches(ref):
 
 def test_device_lz_round_trips():
     """The engine's sections decode with the host inverse."""
-    from kanzi_tpu_torch.utils import native_transforms as nt
     blocks = [mixed_corpus(200_000, seed=5), np.zeros(100_000, np.uint8)]
     for src, enc in zip(blocks, T.lzx_forward_device_batch(blocks, True, 4, device="cpu")):
         assert np.array_equal(nt.lzx_inverse_native(enc, src.size), src)
@@ -236,13 +237,24 @@ def _stream(mod, data: bytes, ctx: dict, **kw) -> bytes:
     return out.getvalue()
 
 
-@pytest.mark.parametrize("level", [1, 3])
+def _stream_data(level: int) -> bytes:
+    """300,077 bytes of the mixed corpus; for level 2 (DNA+LZ) its second
+    128 KiB block is dna_like, which the DNA stage packs and LZ then parses
+    at min_match 6."""
+    data = mixed_corpus(300_077, seed=41)
+    if level == 2:
+        data[128 << 10:256 << 10] = dna_like(128 << 10, seed=43)
+    return data.tobytes()
+
+
+@pytest.mark.parametrize("level", [1, 2, 3])
 def test_device_lz_stream_matches(level, ref, monkeypatch):
-    """Level 1 (LZX alone: the writer's batched dispatch) and level 3 (LZX
-    after four transforms: the codec's own dispatch) with the gate on equal
+    """Level 1 (LZX alone: the writer's batched dispatch), level 2 (LZ after
+    DNA) and level 3 (LZX after four transforms), the last two through the
+    codec's own dispatch, one block a call, with the gate on equal
     kanzi_tpu's device-LZ streams, decode on the port both ways, and differ
     from the host parse's streams."""
-    data = mixed_corpus(300_077, seed=41).tobytes()
+    data = _stream_data(level)
     t, e, _ = LEVELS[level]
     ctx = {"transform": t, "entropy": e, "blockSize": 128 << 10, "jobs": 1}
     monkeypatch.setenv("KANZI_TPU_DEVICE_LZ", "1")
@@ -259,3 +271,49 @@ def test_device_lz_stream_matches(level, ref, monkeypatch):
     monkeypatch.delenv("KANZI_TPU_DEVICE_LZ")
     assert _stream(port, data, ctx, device="cpu") == parse
 
+
+def test_row_engine_groups_match(monkeypatch):
+    """The windowed row engine's group loop, as blocks over 16 MiB take it:
+    with MAX_FLAT at 1 MiB and GROUP_ROWS at 4 in both packages (both read
+    them at call time), two blocks of 1.5 MiB + 5,000 B make 2 x 9 rows in
+    five dispatches of four, one of them straddling the two blocks and the
+    last padded from two.  Their sections equal kanzi_tpu's and decode."""
+    blocks = [mixed_corpus((3 << 19) + 5_000, seed=43),
+              text_like((3 << 19) + 5_000, seed=44)]
+    for mod in (J, T):
+        monkeypatch.setattr(mod, "MAX_FLAT", 1 << 20)
+        monkeypatch.setattr(mod, "GROUP_ROWS", 4)
+    monkeypatch.setenv("KANZI_TPU_PALLAS_INTERPRET", "1")
+    groups = []
+    stage = T._match_stage
+
+    def counted(rows, vend, isfirst, mdrow, mm):
+        groups.append((rows.shape[0], int(isfirst.sum())))
+        return stage(rows, vend, isfirst, mdrow, mm)
+
+    monkeypatch.setattr(T, "_match_stage", counted)
+    got = T.lzx_forward_device_batch(blocks, True, 4, device="cpu")
+    assert [-(-b.size // T.STRIDE) for b in blocks] == [9, 9]
+    # (rows, first rows + pad rows): block 1 starts in group 2, pads end group 4
+    assert groups == [(4, 1), (4, 0), (4, 1), (4, 0), (4, 2)]
+    want = J.lzx_forward_device_batch(blocks, True, 4)
+    for src, g, w in zip(blocks, got, want):
+        assert g is not None and w is not None and np.array_equal(g, w)
+        assert np.array_equal(nt.lzx_inverse_native(g, src.size), src)
+
+
+@pytest.mark.parametrize("anchor", ["0", "2"])
+def test_anchor_variable_ignored(anchor, monkeypatch):
+    """kanzi_tpu's KANZI_TPU_LZ_ANCHOR (anchor-sampled tier A, a measured
+    rejection kept off by default in kanzi_tpu) is not ported: under any
+    value the port's level-1 device stream is its stream without it."""
+    data = _stream_data(1)
+    t, e, _ = LEVELS[1]
+    ctx = {"transform": t, "entropy": e, "blockSize": 128 << 10, "jobs": 1}
+    monkeypatch.setenv("KANZI_TPU_DEVICE_LZ", "1")
+    want = _stream(port, data, ctx, device="cpu")
+    monkeypatch.setenv("KANZI_TPU_LZ_ANCHOR", anchor)
+    got = _stream(port, data, ctx, device="cpu")
+    assert got == want
+    with port.CompressedInputStream(io.BytesIO(got), {}, device=None) as cis:
+        assert cis.read(-1) == data
