@@ -49,8 +49,9 @@ Phases, one line each; any failure raises and the exit code is not 0:
      every f < 2048 and every state x < 2^31 (csrc/ans1.cu
      recip_check_kernel, 0 mismatches or the run fails); ksort at (8, 2^22) x 2 and
      (512, 2^16) x 5 operands, 2 keys, the last an iota, with its schedule's
-     pass count and each kind of pass timed alone (and, untimed, at eight
-     small shapes of 1-8 operands that take the launcher's other paths);
+     pass count, its time on the card alone at each shape and each kind of
+     pass timed alone (and, untimed, at eight small shapes of 1-8 operands
+     that take the launcher's other paths);
      all times by CUDA
      events around the wrapper, warm, median of 5, at one main-path launch's
      shape (ans1_scan at the six chunks of its plain run), and each kernel's
@@ -143,14 +144,35 @@ Phases, one line each; any failure raises and the exit code is not 0:
      streams three compresses, each with the allocator's bytes, cudaMalloc
      calls and retries, and the host seconds of each dispatch and flat
      analysis
+ 15  the configuration space the CLI accepts, each stream written at cuda
+     and at None (byte for byte equal, decoded both ways) with its launch
+     counts equal to what the device gates give, none where they say host:
+     a. tests/golden/l0..l9.knz rewritten at cuda from the CPU test's data
+     (mixed_corpus(256 KiB, seed=1234)), levels 2, 3 and 5 launching their
+     entropy kernels once, the others none; b. levels 1-5 through
+     app/benchmark.py run_config on mixed_corpus(8 MiB + 12,345 B) at jobs
+     8 (level 1 under KANZI_TPU_DEVICE_LZ=1, at most 1.05 x the host
+     parse's bytes; level 5 also under KANZI_TPU_DEVICE_BWT=1 and at -x 64,
+     jobs 16); c. transform NONE with ANS0, HUFFMAN and ANS1 at blocks of 64
+     KiB - 16, 64 KiB, 1 MiB and 4 MiB + 16 KiB (ANS1 also 6 and 8 MiB),
+     two full blocks and a short one of mixed_corpus, uniform random bytes,
+     one repeated byte and two symbols at 999:1; d. ``python -m
+     kanzi_tpu_torch.app.benchmark <file> --sweep --device cuda`` on
+     mixed_corpus(1 MiB + 12,345 B) (a subprocess started first, beside
+     parts a-c and e; exit 0, 152 configurations, none failed),
+     run_sweep over 4 MiB + 12,345 B with NONE, HUFFMAN, ANS0 and ANS1 at
+     cuda and at None (each configuration's stream equal), and main(file,
+     levels 0-9, --device cuda) against run_levels at None; e. one
+     multihost worker (parallel/multihost.py) through dryrun_multihost(1,
+     "cuda"), NCCL on the loopback: OK p0, its own launch counts
 The launch counts are set to 0 just before each of phases 3-9, each step
-of phase 12 and each stream of phases 13 and 14 and read just after it;
-the counts of phases 12-14 join the kernels line's.  Then the card line,
+of phase 12 and each stream of phases 13-15 and read just after it;
+the counts of phases 12-15 join the kernels line's.  Then the card line,
 one JSON line of the kernels (each with its bound: the larger of its bytes
 over 3.35 TB/s and its integer operations over 67 T/s), and the result
 line.
 ``--mesh`` runs phases 0-1 and 12 only and prints no result line;
-``--phase14`` runs phases 0-1 and 14 the same way.
+``--phase14`` and ``--phase15`` run phases 0-1 and 14, or 15, the same way.
 ``--quick`` stops after phase 2 and prints no result line, for the first
 call after a kernel changes; ``--phase2 ans0,huffman`` (any of floor, ans0,
 huffman, lz_words, ans1, ksort, and ans1_compact: the compaction's part of
@@ -166,6 +188,8 @@ the script exits non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import functools
 import hashlib
 import io
 import json
@@ -1342,13 +1366,13 @@ def phase10_sa(data: bytes, dev) -> dict:
     return res
 
 
-# phase 11 runs the CLI as ``python -m kanzi_tpu_torch.app`` does (runpy), then
-# prints the run's launch counts and device-SA calls on a line of their own;
+# phases 11 and 15 run a module as ``python -m <module>`` does (runpy), then
+# print the run's launch counts and device-SA calls on a line of their own;
 # with "warm" first, it starts the card and loads the kernels' library before
-# the CLI runs, and times that start-up
+# the module runs, and times that start-up
 _CLI_RUN = """
 import json, runpy, sys, time
-warm, sys.argv = sys.argv[1] == "warm", ["kanzi_tpu_torch"] + sys.argv[2:]
+warm, module, sys.argv = sys.argv[1] == "warm", sys.argv[2], [sys.argv[2]] + sys.argv[3:]
 startup_ms = None
 if warm:
     import torch
@@ -1360,7 +1384,7 @@ if warm:
     startup_ms = (time.perf_counter() - t) * 1e3
 code = 0
 try:
-    runpy.run_module("kanzi_tpu_torch.app", run_name="__main__", alter_sys=True)
+    runpy.run_module(module, run_name="__main__", alter_sys=True)
 except SystemExit as e:
     code = e.code or 0
 from kanzi_tpu_torch.ops import launch
@@ -1369,20 +1393,52 @@ sys.exit(code)
 """
 
 
-def run_cli(flags: list, device_bwt: str = "0") -> tuple[str, dict]:
-    """One CLI process from the repo root, warm when it runs on the card;
-    returns its output and counts, with the process's wall ms."""
+def start_cli(flags: list, device_bwt: str = "0",
+              module: str = "kanzi_tpu_torch.app") -> dict:
+    """Start one process of ``python -m module`` from the repo root, warm
+    when it runs on the card, its output to temporary files; finish_cli
+    waits for it."""
+    import tempfile
     env = dict(os.environ, KANZI_TPU_DEVICE_BWT=device_bwt)
     warm = "warm" if flags[-2:] == ["--device", "cuda"] else "cold"
-    t = time.perf_counter()
-    res = subprocess.run([sys.executable, "-c", _CLI_RUN, warm, *flags],
-                         cwd=os.path.dirname(os.path.abspath(__file__)), env=env,
-                         capture_output=True, text=True, timeout=600)
-    wall_ms = (time.perf_counter() - t) * 1e3
-    check(res.returncode == 0, f"phase 11: the CLI {flags} failed: {res.stderr[-2000:]}")
-    lines = res.stdout.splitlines()
+    out, err = tempfile.TemporaryFile("w+"), tempfile.TemporaryFile("w+")
+    proc = subprocess.Popen([sys.executable, "-c", _CLI_RUN, warm, module, *flags],
+                            cwd=os.path.dirname(os.path.abspath(__file__)), env=env,
+                            stdout=out, stderr=err, text=True)
+    return {"proc": proc, "out": out, "err": err, "t0": time.perf_counter(),
+            "what": f"python -m {module} {flags}"}
+
+
+def stop_cli(run: dict) -> None:
+    """Kill a process of start_cli that still runs."""
+    if run["proc"].poll() is None:
+        run["proc"].kill()
+        run["proc"].wait()
+
+
+def finish_cli(run: dict, timeout: float = 600) -> tuple[str, dict]:
+    """Wait for a process of start_cli, at most ``timeout`` seconds from its
+    start (then kill it); returns its output and counts, with the process's
+    wall ms."""
+    try:
+        run["proc"].wait(timeout=max(timeout - (time.perf_counter() - run["t0"]), 1))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        stop_cli(run)
+    wall_ms = (time.perf_counter() - run["t0"]) * 1e3
+    run["out"].seek(0)
+    run["err"].seek(0)
+    stdout, stderr = run["out"].read(), run["err"].read()
+    check(run["proc"].returncode == 0, f"{run['what']} failed: {stderr[-2000:]}")
+    lines = stdout.splitlines()
     return "\n".join(lines[:-1]), dict(json.loads(lines[-1][len("COUNTS "):]),
                                        wall_ms=wall_ms)
+
+
+def run_cli(flags: list, device_bwt: str = "0") -> tuple[str, dict]:
+    """One CLI process (phase 11): start_cli, then finish_cli."""
+    return finish_cli(start_cli(flags, device_bwt))
 
 
 def cli_ms(out: str) -> float:
@@ -2152,6 +2208,439 @@ def print_phase14(r: dict, prior: dict) -> None:
             print(f"phase 14: {label}: compress {i + 1}: {_run_text(u)}")
 
 
+# phase 15: the configuration space the CLI accepts, beside the one corpus of
+# phases 3-14: every level's golden file, levels 1-5 through the harness, the
+# entropy stages at the gates' block-size and data edges, the sweep harness
+# both ways a user reaches it, and multihost's worker
+FAMILY = {"ANS0": ANS0_KERNELS, "HUFFMAN": HUFFMAN_KERNELS, "ANS1": ANS1_KERNELS}
+GOLDEN_DEVICE = {2: HUFFMAN_KERNELS, 3: HUFFMAN_KERNELS, 5: ANS0_KERNELS}
+# block sizes of part c: one chunk short of the ANS0 and Huffman encode
+# minimum, exactly four 16 KiB chunks, 64 chunks, 257 chunks; for ANS1 also
+# a 4 MiB chunk and a tail, and two chunks
+EDGE_BLOCKS = {e: (64 * 1024 - 16, 64 * 1024, 1 << 20, (4 << 20) + 16384)
+               for e in ("ANS0", "HUFFMAN")}
+EDGE_BLOCKS["ANS1"] = EDGE_BLOCKS["ANS0"] + (6 << 20, 8 << 20)
+EDGE_TAIL = 12_345
+HARNESS_SIZE = (8 << 20) + EDGE_TAIL      # part b: two 4 MiB blocks and a short one
+SWEEP_SIZE = (1 << 20) + EDGE_TAIL        # part d: the CLI's sweep, 19 x 8 configurations
+SWEEP_DEVICE_SIZE = (4 << 20) + EDGE_TAIL  # part d: the entropies with a device stage
+SWEEP_ENTROPIES = ["NONE", "HUFFMAN", "ANS0", "ANS1"]
+# part b: (level, environment, jobs, checksum bits)
+HARNESS_RUNS = ((1, {"KANZI_TPU_DEVICE_LZ": "1"}, 8, 0), (2, {}, 8, 0), (3, {}, 8, 0),
+                (4, {}, 8, 0), (5, {}, 8, 0), (5, {"KANZI_TPU_DEVICE_BWT": "1"}, 8, 0),
+                (5, {}, 16, 64))
+
+
+def _set_env(values: dict) -> None:
+    for k, v in values.items():
+        if v is None:
+            os.environ.pop(k, None)
+        else:
+            os.environ[k] = v
+
+
+@contextlib.contextmanager
+def env_vars(**kw):
+    """The environment variables of ``kw`` set (None: unset) for a block,
+    then restored."""
+    old = {k: os.environ.get(k) for k in kw}
+    _set_env(kw)
+    try:
+        yield
+    finally:
+        _set_env(old)
+
+
+def nonzero_launches() -> dict:
+    from kanzi_tpu_torch.ops import launch
+    return {k: v for k, v in launch.launches.items() if v}
+
+
+def edge_size(block: int) -> int:
+    """Part c's input length at ``block``: two full blocks and a short one."""
+    return 2 * block + block // 2 + EDGE_TAIL
+
+
+def edge_inputs(n: int) -> dict:
+    """Part c's four inputs of ``n`` bytes, made from a seed with numpy."""
+    import numpy as np
+
+    from kanzi_tpu_torch.utils.corpus import mixed_corpus
+    rng = np.random.default_rng(15)
+    return {"mixed": mixed_corpus(n, seed=15),
+            "random": rng.integers(0, 256, n, dtype=np.uint8),
+            "one byte": np.full(n, 0x41, np.uint8),
+            "two symbols 999:1": np.where(rng.random(n) < 0.001, 0x42, 0x41).astype(np.uint8)}
+
+
+def copied_blocks(blob: bytes) -> list:
+    """Whether each block of a stream is stored as a copy (its mode's
+    COPY_BLOCK_MASK), without the entropy stage: encode_block stores a block
+    so when the entropy stage's payload is no smaller than its bytes."""
+    from kanzi_tpu_torch.io import stream as port
+    out = []
+    with port.CompressedInputStream(io.BytesIO(blob), {}, device=None) as cis:
+        while (frame := cis._frame_next()) is not None:
+            out.append(bool(frame[1][0] & port.COPY_BLOCK_MASK))
+    return out
+
+
+def gate_launches(entropy: str, data, block: int, blob: bytes) -> dict:
+    """The launches the entropy stage's device gates give a transform-NONE
+    stream of ``data`` (uint8) at ``block``-byte blocks, compressed and then
+    decompressed on the card: one launch of each encode kernel a block that
+    the encode gate sends to the card (ANS0 and Huffman: at least four full
+    16 KiB chunks, entropy/ans.py and huffman.py; ANS1: a full 4 MiB chunk),
+    and of the decode kernel a block that the decode gate sends there (ANS0:
+    as its encode; Huffman: a full chunk, entropy/huffman.py decode), that
+    the stream ``blob`` holds entropy-coded (copied_blocks) and that has
+    a full chunk of two or more symbols (a one-symbol chunk is a header
+    only); ANS1 decodes on the host.  Every other kernel none."""
+    out = dict.fromkeys(REPLACES, 0)
+    copied = copied_blocks(blob)
+    for i, start in enumerate(range(0, len(data), block)):
+        blk = data[start:start + block]
+        nfull = len(blk) // CHUNK
+        full = blk[:nfull * CHUNK].reshape(nfull, CHUNK)
+        multi = bool((full != full[:, :1]).any())
+        enc = len(blk) >= BLOCK if entropy == "ANS1" else nfull >= 4
+        dec = ({"ANS0": enc, "HUFFMAN": nfull >= 1, "ANS1": False}[entropy]
+               and multi and not copied[i])
+        for k in FAMILY[entropy]:
+            out[k] += int(dec if k.endswith("_decode") else enc)
+    return {k: v for k, v in out.items() if v}
+
+
+def config_stream(label: str, data: bytes, ctx: dict, dev, expect) -> dict:
+    """One stream of phase 15, written at ``dev`` and at None: the card's
+    bytes must equal the host's, and decode at ``dev`` and at None.  The
+    launch counts are set to 0 just before the card's compress and read just
+    after its decode; they must equal ``expect(blob)`` (kernel -> launches,
+    every kernel not named none)."""
+    import torch
+
+    from kanzi_tpu_torch.io import stream as port
+    from kanzi_tpu_torch.ops import launch
+
+    jobs = ctx["jobs"]
+    launch.reset_launches()
+    t0 = time.perf_counter()
+    blob = _compress(port.CompressedOutputStream, data, ctx, device=dev)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    out = _decompress(port.CompressedInputStream, blob, jobs, device=dev)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    got = nonzero_launches()
+    check(out == data, f"phase 15: {label}: the decode on the card differs from the input")
+    ref = _compress(port.CompressedOutputStream, data, ctx, device=None)
+    t3 = time.perf_counter()
+    check(blob == ref, f"phase 15: {label}: the card's stream differs from the host's "
+                       f"({len(blob)} B, host {len(ref)} B)")
+    out = _decompress(port.CompressedInputStream, blob, jobs, device=None)
+    t4 = time.perf_counter()
+    check(out == data, f"phase 15: {label}: the host's decode differs from the input")
+    want = expect(blob)
+    check(got == want, f"phase 15: {label}: launches {got}, the gates give {want}")
+    return {"bytes_in": len(data), "bytes_out": len(blob), "launches": got,
+            "sha256": hashlib.sha256(blob).hexdigest(),
+            "s": [t1 - t0, t2 - t1, t3 - t2, t4 - t3]}
+
+
+def group_sum(runs: list) -> dict:
+    """Streams, bytes, MB/s (card and host, each way) and launches of a group."""
+    n = sum(r["bytes_in"] for r in runs)
+    s = [sum(r["s"][i] for r in runs) for i in range(4)]
+    launches: dict = {}
+    for r in runs:
+        for k, v in r["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    return {"streams": len(runs), "bytes_in": n, "bytes_out": sum(r["bytes_out"] for r in runs),
+            "mb_s": {"card_compress": n / 1e6 / s[0], "card_decompress": n / 1e6 / s[1],
+                     "host_compress": n / 1e6 / s[2], "host_decompress": n / 1e6 / s[3]},
+            "launches": launches}
+
+
+def golden_group(dev) -> dict:
+    """Part a: tests/golden/l0..l9.knz written at ``dev`` from the CPU test's
+    data and ctx (tests/test_torch_golden.py), byte for byte; levels 2, 3
+    and 5 (whose entropy stage sees at least four full chunks) launch their
+    family's kernels once, the others none."""
+    from kanzi_tpu_torch.app.block_compressor import LEVELS, BlockCompressor
+    from kanzi_tpu_torch.utils.corpus import mixed_corpus
+
+    data = mixed_corpus(256 * 1024, seed=1234).tobytes()
+    root = os.path.dirname(os.path.abspath(__file__))
+    runs = []
+    with env_vars(KANZI_TPU_DEVICE_LZ=None, KANZI_TPU_DEVICE_BWT=None):
+        for level in range(10):
+            t, e, b = LEVELS[level]
+            ctx = BlockCompressor(transform=t, entropy=e, block_size=b, jobs=1,
+                                  device=None)._ctx(len(data))
+            once = dict.fromkeys(GOLDEN_DEVICE.get(level, ()), 1)
+            r = config_stream(f"golden l{level}", data, ctx, dev, lambda _, once=once: once)
+            with open(os.path.join(root, "tests", "golden", f"l{level}.knz"), "rb") as fh:
+                golden = fh.read()
+            check(r["sha256"] == hashlib.sha256(golden).hexdigest(),
+                  f"phase 15: level {level} at {dev} differs from tests/golden/l{level}.knz")
+            runs.append(r)
+    return group_sum(runs)
+
+
+def harness_group(dev) -> dict:
+    """Part b: levels 1-5 through app/benchmark.py run_config on
+    mixed_corpus(8 MiB + 12,345 B), at the card and at None (each round-
+    tripped by run_config).  The launch counts are set to 0 just before the
+    card's run_config and read just after: each level's device kernels ran
+    (level 1 lz_words under KANZI_TPU_DEVICE_LZ=1, levels 2-3 Huffman's,
+    level 5 ANS0's, and the device SA under KANZI_TPU_DEVICE_BWT=1) and no
+    other.  The card's stream equals the host's (its sha256), but level 1's:
+    its tokens are not the host parse's, so it is at most 1.05 x the host's
+    bytes and the host coders decode it."""
+    import torch
+
+    from kanzi_tpu_torch.app import benchmark as bench
+    from kanzi_tpu_torch.app.block_compressor import LEVELS, BlockCompressor
+    from kanzi_tpu_torch.app.block_decompressor import BlockDecompressor
+    from kanzi_tpu_torch.ops import launch
+    from kanzi_tpu_torch.utils.corpus import mixed_corpus
+
+    data = mixed_corpus(HARNESS_SIZE, seed=12).tobytes()
+    kernels = {1: LZ_KERNELS, 2: HUFFMAN_KERNELS, 3: HUFFMAN_KERNELS, 4: (), 5: ANS0_KERNELS}
+    runs = []
+    for level, env, jobs, checksum in HARNESS_RUNS:
+        t, e, b = LEVELS[level]
+        label = (f"-l {level} -j {jobs}" + (f" -x {checksum}" if checksum else "")
+                 + "".join(f" {k}={v}" for k, v in env.items()))
+        with env_vars(**{"KANZI_TPU_DEVICE_LZ": None, "KANZI_TPU_DEVICE_BWT": None, **env}):
+            launch.reset_launches()
+            card = bench.run_config(data, t, e, b, jobs, device=dev, checksum=checksum)
+            torch.cuda.synchronize()
+            got = nonzero_launches()
+            want = set(kernels[level]) | ({"suffix_array"} if env.get("KANZI_TPU_DEVICE_BWT")
+                                          else set())
+            check(set(got) == want, f"phase 15: {label}: launches {got}, want {sorted(want)}")
+            if level == 1:
+                blob = BlockCompressor(transform=t, entropy=e, block_size=b, jobs=jobs,
+                                       device=dev).compress_bytes(data)
+        host = bench.run_config(data, t, e, b, jobs, device=None, checksum=checksum)
+        if level == 1:
+            check(hashlib.sha256(blob).hexdigest() == card.digest,
+                  f"phase 15: {label}: two compresses on the card differ")
+            check(BlockDecompressor(jobs=jobs, device=None).decompress_bytes(blob) == data,
+                  f"phase 15: {label}: the host coders' decode differs from the input")
+            check(card.out_size <= 1.05 * host.out_size,
+                  f"phase 15: {label}: {card.out_size} B is over 1.05 x the host parse's "
+                  f"{host.out_size} B")
+        else:
+            check(card.digest == host.digest, f"phase 15: {label}: the card's stream "
+                  f"({card.out_size} B) differs from the host's ({host.out_size} B)")
+        runs.append({"label": label, "bytes_in": len(data), "bytes_out": card.out_size,
+                     "host_bytes_out": host.out_size, "launches": got,
+                     "mb_s": [card.enc_mbps, card.dec_mbps, host.enc_mbps, host.dec_mbps]})
+    return {"runs": runs}
+
+
+def edge_group(entropy: str, dev) -> dict:
+    """Part c for one entropy: transform NONE at each of EDGE_BLOCKS[entropy]
+    on the four inputs of edge_inputs, each a non-multiple of the block (two
+    full blocks and a short one), jobs 8; every stream's launches equal
+    gate_launches'."""
+    sizes = [edge_size(b) for b in EDGE_BLOCKS[entropy]]
+    inputs = edge_inputs(max(sizes))
+    runs, by_block = [], {}
+    for block, n in zip(EDGE_BLOCKS[entropy], sizes):
+        ctx = {"transform": "NONE", "entropy": entropy, "blockSize": block, "jobs": 8}
+        for kind, arr in inputs.items():
+            r = config_stream(f"{entropy} at {block}-byte blocks, {kind}, {n} B",
+                              arr[:n].tobytes(), ctx, dev,
+                              functools.partial(gate_launches, entropy, arr[:n], block))
+            runs.append(r)
+            by_block.setdefault(block, []).append(r)
+    out = group_sum(runs)
+    out["by_block"] = {b: group_sum(rs)["launches"] for b, rs in by_block.items()}
+    return out
+
+
+def start_cli_sweep() -> dict:
+    """Part d's subprocess, ``python -m kanzi_tpu_torch.app.benchmark <file>
+    --sweep --device cuda`` over mixed_corpus(1 MiB + 12,345 B) written to a
+    temporary directory; started first, it runs beside parts a-c and e."""
+    import tempfile
+
+    from kanzi_tpu_torch.utils.corpus import mixed_corpus
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_sweep_")
+    src = os.path.join(tmp, "corpus.bin")
+    with open(src, "wb") as fh:
+        fh.write(mixed_corpus(SWEEP_SIZE, seed=12).tobytes())
+    run = start_cli([src, "--sweep", "--device", "cuda"], module="kanzi_tpu_torch.app.benchmark")
+    return dict(run, tmp=tmp, src=src)
+
+
+def sweep_group(dev, sweep: dict) -> dict:
+    """Part d: run_sweep over 4 MiB + 12,345 B with the entropies that have
+    a device stage, at ``dev`` and at None, each configuration's stream
+    equal (its sha256), every ANS0, Huffman and ANS1 kernel launched;
+    main(file, levels 0-9, --device cuda), run_levels, on the sweep's file,
+    each level's size equal to run_levels' at None, the ANS0 and Huffman
+    kernels launched; then the CLI's sweep (start_cli_sweep): exit 0, all
+    19 x 8 configurations printed, none failed or skipped, the ANS0 and
+    Huffman kernels launched (ANS1's take blocks of 4 MiB, so none)."""
+    import re
+
+    import torch
+
+    from kanzi_tpu_torch.app import benchmark as bench
+    from kanzi_tpu_torch.ops import launch
+    from kanzi_tpu_torch.utils.corpus import mixed_corpus
+
+    out: dict = {}
+    data = mixed_corpus(SWEEP_DEVICE_SIZE, seed=12).tobytes()
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        launch.reset_launches()
+        card = bench.run_sweep(data, 1, entropies=SWEEP_ENTROPIES, quiet=True, device=dev)
+        torch.cuda.synchronize()
+        got = nonzero_launches()
+        t1 = time.perf_counter()
+        host = bench.run_sweep(data, 1, entropies=SWEEP_ENTROPIES, quiet=True, device=None)
+    t2 = time.perf_counter()
+    check(len(card) == len(host) == len(bench.SWEEP_TRANSFORMS) * len(SWEEP_ENTROPIES),
+          f"phase 15: run_sweep gave {len(card)} and {len(host)} results")
+    differ = [c.config for c, h in zip(card, host)
+              if (c.config, c.digest) != (h.config, h.digest)]
+    check(not differ, f"phase 15: run_sweep at {dev} differs from None at {differ}")
+    check(set(got) == set(ANS0_KERNELS + HUFFMAN_KERNELS + ANS1_KERNELS),
+          f"phase 15: run_sweep's launches {got}")
+    out["run_sweep"] = {"configs": len(card), "launches": got, "card_s": t1 - t,
+                        "host_s": t2 - t1}
+
+    small = mixed_corpus(SWEEP_SIZE, seed=12).tobytes()
+    t = time.perf_counter()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        launch.reset_launches()
+        code = bench.main([sweep["src"]] + [str(lv) for lv in range(10)] + ["--device", "cuda"])
+        torch.cuda.synchronize()
+        got = nonzero_launches()
+    t1 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        host = bench.run_levels(small, device=None)
+    check(code == 0, f"phase 15: main(levels 0-9, --device cuda) returned {code}")
+    sizes = [int(m.group(1))
+             for m in re.finditer(r"^-l \d \(\S+\) +(\d+) \(", buf.getvalue(), re.M)]
+    check(sizes == [r.out_size for r in host],
+          f"phase 15: main's level sizes {sizes}, run_levels at None "
+          f"{[r.out_size for r in host]}")
+    check(set(got) == set(ANS0_KERNELS + HUFFMAN_KERNELS), f"phase 15: main's launches {got}")
+    out["levels"] = {"launches": got, "card_s": t1 - t, "sizes": sizes}
+
+    text, counts = finish_cli(sweep)
+    configs = {m.group(1) for m in re.finditer(r"^(\S+) b=4M ", text, re.M)}
+    n_configs = len(bench.SWEEP_TRANSFORMS) * len(bench.SWEEP_ENTROPIES)
+    check(len(configs) == n_configs and "[failed" not in text and "[skipped" not in text,
+          f"phase 15: the sweep printed {len(configs)} of {n_configs} configurations: "
+          f"{text[-2000:]}")
+    got = {k: v for k, v in counts["launches"].items() if v}
+    check(set(got) == set(ANS0_KERNELS + HUFFMAN_KERNELS),
+          f"phase 15: the sweep's launches {got}")
+    out["cli_sweep"] = {"configs": len(configs), "launches": got,
+                        "wall_s": counts["wall_ms"] / 1e3}
+    return out
+
+
+def multihost_group() -> dict:
+    """Part e: one multihost worker process (--process-id 0 --num-processes
+    1, NCCL on the loopback) through parallel/dryrun.py dryrun_multihost:
+    "OK p0", its ANS0 wire equal to the host encoder's, its level-1 stream
+    round-tripped, the ANS0 encode kernels and lz_words launched in it."""
+    import ast
+
+    from kanzi_tpu_torch.parallel.dryrun import dryrun_multihost
+
+    with contextlib.redirect_stdout(io.StringIO()):
+        lines = dryrun_multihost(1, "cuda", timeout=300)
+    line = lines[0]
+    check(line.startswith("OK p0") and "equal to the host encoder's" in line
+          and "round-trip ok" in line, f"phase 15: multihost: {line}")
+    got = ast.literal_eval(line.rsplit("launches ", 1)[1])
+    want = set(ANS0_KERNELS[:3] + LZ_KERNELS)
+    check(set(got) == want, f"phase 15: multihost's launches {got}, want {sorted(want)}")
+    return {"line": line, "launches": got}
+
+
+def phase15_configs(dev) -> dict:
+    """Parts a-e of phase 15, each group timed; the CLI's sweep of part d
+    starts first and runs beside the others."""
+    import shutil
+
+    out = {}
+    sweep = start_cli_sweep()
+    try:
+        for key, fn in (("a", lambda: golden_group(dev)), ("b", lambda: harness_group(dev)),
+                        ("c ANS0", lambda: edge_group("ANS0", dev)),
+                        ("c HUFFMAN", lambda: edge_group("HUFFMAN", dev)),
+                        ("c ANS1", lambda: edge_group("ANS1", dev)), ("e", multihost_group),
+                        ("d", lambda: sweep_group(dev, sweep))):
+            t = time.perf_counter()
+            out[key] = fn()
+            out[key]["seconds"] = time.perf_counter() - t
+    finally:
+        stop_cli(sweep)
+        shutil.rmtree(sweep["tmp"])
+    launches: dict = {}
+    for step in (out["a"], *out["b"]["runs"], out["c ANS0"], out["c HUFFMAN"], out["c ANS1"],
+                 out["d"]["run_sweep"], out["d"]["levels"], out["e"]):
+        for k, v in step["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    out["launches"] = launches
+    return out
+
+
+def _rates(m: dict) -> str:
+    return (f"card MB/s compress {m['card_compress']:.2f} decompress "
+            f"{m['card_decompress']:.2f}, host compress {m['host_compress']:.2f} decompress "
+            f"{m['host_decompress']:.2f}")
+
+
+def print_phase15(r: dict) -> None:
+    card = card_line()
+    a = r["a"]
+    print(f"phase 15: a. golden files l0-l9 (mixed_corpus(256 KiB, seed=1234)): {a['streams']} "
+          f"streams, {a['bytes_in']} B -> {a['bytes_out']} B, each written at cuda byte for "
+          f"byte as tests/golden/l<n>.knz and as the host stream, decoded at cuda and None; "
+          f"{_rates(a['mb_s'])}; launches {a['launches']} (levels 2, 3, 5 once each, the "
+          f"others none); {a['seconds']:.1f} s; card {card}")
+    for u in r["b"]["runs"]:
+        print(f"phase 15: b. run_config {u['label']} on {u['bytes_in']} B: {u['bytes_out']} B "
+              f"(host {u['host_bytes_out']} B); MB/s card compress {u['mb_s'][0]:.2f} "
+              f"decompress {u['mb_s'][1]:.2f}, host compress {u['mb_s'][2]:.2f} decompress "
+              f"{u['mb_s'][3]:.2f}; launches {u['launches']}")
+    print(f"phase 15: b. levels 1-5 through run_config: {len(r['b']['runs'])} runs, equal to the "
+          f"host's (level 1: at most 1.05 x, decoded by the host coders); "
+          f"{r['b']['seconds']:.1f} s; card {card}")
+    for e in FAMILY:
+        c = r["c " + e]
+        print(f"phase 15: c. {e} alone at blocks of {', '.join(map(str, EDGE_BLOCKS[e]))} B "
+              f"on mixed, random, one-byte and 999:1 inputs: {c['streams']} streams, "
+              f"{c['bytes_in']} B -> {c['bytes_out']} B, each equal to the host stream, decoded "
+              f"at cuda and None; {_rates(c['mb_s'])}; launches {c['launches']} (by block "
+              f"{c['by_block']}), as the gates give; {c['seconds']:.1f} s; card {card}")
+    d = r["d"]
+    print(f"phase 15: d. python -m kanzi_tpu_torch.app.benchmark --sweep --device cuda on "
+          f"{SWEEP_SIZE} B (beside parts a-c and e): {d['cli_sweep']['configs']} "
+          f"configurations, none failed, exit 0, {d['cli_sweep']['wall_s']:.1f} s from its "
+          f"start, launches {d['cli_sweep']['launches']}; run_sweep over {SWEEP_DEVICE_SIZE} B with {', '.join(SWEEP_ENTROPIES)}: "
+          f"{d['run_sweep']['configs']} configurations equal to None's, card "
+          f"{d['run_sweep']['card_s']:.1f} s, host {d['run_sweep']['host_s']:.1f} s, launches "
+          f"{d['run_sweep']['launches']}; main(levels 0-9, --device cuda) sizes "
+          f"{d['levels']['sizes']} equal to run_levels at None, {d['levels']['card_s']:.1f} s, "
+          f"launches {d['levels']['launches']}; {d['seconds']:.1f} s; card {card}")
+    e = r["e"]
+    print(f"phase 15: e. multihost worker over NCCL on lo: {e['line']}; {e['seconds']:.1f} s")
+
+
 def _family(name: str) -> str:
     """Kernel family of a device event, for the level-1 profile."""
     low = name.lower()
@@ -2236,6 +2725,8 @@ def main() -> int:
                     help="run phases 0-1 and 12 (the multi-GPU engine) only")
     ap.add_argument("--phase14", action="store_true",
                     help="run phases 0-1 and 14 (the device LZ paths beside phase 7) only")
+    ap.add_argument("--phase15", action="store_true",
+                    help="run phases 0-1 and 15 (the configuration space) only")
     ap.add_argument("--phase2", metavar="GROUPS",
                     help="run only these comma-separated phase-2 groups (of "
                          f"{', '.join(PHASE2_GROUPS)}), then stop")
@@ -2283,6 +2774,11 @@ def main() -> int:
         t = time.perf_counter()
         print_phase14(phase14_lz(data, dev, {}), {})
         print(f"phase 14: done in {time.perf_counter() - t:.1f} s")
+        return 0
+    if args.phase15:
+        t = time.perf_counter()
+        print_phase15(phase15_configs(dev))
+        print(f"phase 15: done in {time.perf_counter() - t:.1f} s")
         return 0
     if args.profile:
         print(card_line())
@@ -2340,7 +2836,8 @@ def main() -> int:
               f"against x / f: {r['recip']['recip_mismatches']} mismatches in "
               f"{r['recip']['recip_pairs']} pairs ({r['recip']['recip_check_s']:.2f} s)")
     for shape, a in kern.get("ksort", {}).get("at", {}).items():
-        print(f"phase 2: ksort at {shape}: kernel {a['ms']:.4f} ms, plain {a['plain_ms']:.4f} "
+        print(f"phase 2: ksort at {shape}: kernel {a['ms']:.4f} ms ({a['device_ms']:.4f} on "
+              f"the card alone), plain {a['plain_ms']:.4f} "
               f"ms, library call {a['library_ms']:.4f} ms, bound {a['bound_ms']:.4f} ms "
               f"({a['bound_by']}); {a['passes']} passes, alone: "
               + ", ".join(f"{k} {v:.4f} ms" for k, v in a["pass_ms"].items()))
@@ -2451,8 +2948,12 @@ def main() -> int:
     print(f"phase 14: done in {time.perf_counter() - t:.1f} s")
     kern["lz_words"]["at"] = {f"({r14['first_group']['rows']}, 262144)":
                               r14["first_group"]["lz_words"]}
+    t = time.perf_counter()
+    r15 = phase15_configs(dev)
+    print_phase15(r15)
+    print(f"phase 15: done in {time.perf_counter() - t:.1f} s")
     for step in [*r12["launches"].values(), *r13["launches"].values(),
-                 *r14["launches"].values()]:
+                 *r14["launches"].values(), r15["launches"]]:
         for k, v in step.items():
             if k in launches:
                 launches[k] += v

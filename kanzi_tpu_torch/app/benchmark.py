@@ -8,11 +8,14 @@ None for the host coders) or as
     python -m kanzi_tpu_torch.app.benchmark <file> [levels...|--sweep[=depth]]
         [--device cuda|cpu|none]
 
-whose device is the CLI's: ``cuda`` unless asked otherwise.
+whose device is the CLI's: ``cuda`` unless asked otherwise.  Nothing is
+skipped: a configuration that fails (a round trip that differs, a kernel
+that raises) fails the sweep, which kanzi_tpu's harness prints as a skip.
 """
 
 from __future__ import annotations
 
+import hashlib
 import sys
 import time
 from dataclasses import dataclass
@@ -29,6 +32,7 @@ class Result:
     out_size: int
     enc_mbps: float
     dec_mbps: float
+    digest: str = ""        # sha256 of the compressed stream
 
     @property
     def ratio(self) -> float:
@@ -40,9 +44,10 @@ class Result:
 
 
 def run_config(data: bytes, transform: str, entropy: str, block_size: int,
-               jobs: int = 4, *, device) -> Result:
+               jobs: int = 4, *, device, checksum: int = 0) -> Result:
     bc = BlockCompressor(transform=transform, entropy=entropy,
-                         block_size=block_size, jobs=jobs, device=device)
+                         block_size=block_size, jobs=jobs, checksum=checksum,
+                         device=device)
     t0 = time.perf_counter()
     blob = bc.compress_bytes(data)
     t1 = time.perf_counter()
@@ -52,7 +57,8 @@ def run_config(data: bytes, transform: str, entropy: str, block_size: int,
         raise RuntimeError(f"round-trip failed for {transform}+{entropy}")
     n = len(data)
     return Result(f"{transform}+{entropy} b={block_size >> 20}M", n, len(blob),
-                  n / 1e6 / max(t1 - t0, 1e-9), n / 1e6 / max(t2 - t1, 1e-9))
+                  n / 1e6 / max(t1 - t0, 1e-9), n / 1e6 / max(t2 - t1, 1e-9),
+                  hashlib.sha256(blob).hexdigest())
 
 
 def run_levels(data: bytes, levels=None, jobs: int = 4, *,
@@ -98,12 +104,28 @@ def _chains(depth: int):
             yield "+".join(combo)
 
 
+class SweepFailed(RuntimeError):
+    """Configurations of a sweep failed.  ``failures`` holds each one's
+    (config, exception), ``results`` the configurations that ran."""
+
+    def __init__(self, failures: list, results: list) -> None:
+        self.failures = failures
+        self.results = results
+        super().__init__(f"{len(failures)} sweep configuration(s) failed: " + "; ".join(
+            f"{c} ({type(ex).__name__}: {ex})" for c, ex in failures))
+
+
 def run_sweep(data: bytes, depth: int = 1, entropies=None, jobs: int = 4,
               workers: int = 0, block_size: int = 4 << 20,
               quiet: bool = False, *, device) -> list[Result]:
     """Full combinatorial sweep: every 1..depth transform chain x every
     entropy codec, executed in parallel on a thread pool, with a ranked
-    analysis of the best configs by size / encode speed / decode speed."""
+    analysis of the best configs by size / encode speed / decode speed.
+
+    No configuration is skipped.  Any exception of a configuration (its
+    round trip differing, a kernel raising) is printed as ``[failed:
+    <type>]`` while the others run on; then the analysis of those that ran,
+    and SweepFailed is raised."""
     import concurrent.futures as cf
     import os
 
@@ -111,39 +133,43 @@ def run_sweep(data: bytes, depth: int = 1, entropies=None, jobs: int = 4,
     combos = [(t, e) for t in _chains(depth) for e in entropies]
     workers = workers or min(os.cpu_count() or 2, 8)
     results: list[Result] = []
+    failures: list = []
 
     def one(te):
         t, e = te
         try:
             return run_config(data, t, e, block_size, jobs=1, device=device)
-        except Exception as ex:  # a skip/decline is a valid outcome
-            r = Result(f"{t}+{e}", len(data), len(data), 0.0, 0.0)
-            r.config += f" [skipped: {type(ex).__name__}]"
-            return r
+        except Exception as ex:
+            return ex
 
     with cf.ThreadPoolExecutor(max_workers=workers) as pool:
-        for r in pool.map(one, combos):
+        for (t, e), r in zip(combos, pool.map(one, combos)):
+            if isinstance(r, Exception):
+                failures.append((f"{t}+{e}", r))
+                print(f"{t}+{e} [failed: {type(r).__name__}: {r}]", flush=True)
+                continue
             results.append(r)
             if not quiet:
                 print(r, flush=True)
     analyze(results)
+    if failures:
+        raise SweepFailed(failures, results)
     return results
 
 
 def analyze(results: list[Result], top: int = 10) -> None:
     """Result analysis: rank by compressed size, encode and decode speed."""
-    live = [r for r in results if r.enc_mbps > 0]
-    if not live:
+    if not results:
         print("no successful configs")
         return
     print(f"\n--- best ratio (top {top}) ---")
-    for r in sorted(live, key=lambda r: r.out_size)[:top]:
+    for r in sorted(results, key=lambda r: r.out_size)[:top]:
         print(r)
     print(f"--- fastest encode (top {top}) ---")
-    for r in sorted(live, key=lambda r: -r.enc_mbps)[:top]:
+    for r in sorted(results, key=lambda r: -r.enc_mbps)[:top]:
         print(r)
     print(f"--- fastest decode (top {top}) ---")
-    for r in sorted(live, key=lambda r: -r.dec_mbps)[:top]:
+    for r in sorted(results, key=lambda r: -r.dec_mbps)[:top]:
         print(r)
 
 
@@ -185,7 +211,11 @@ def main(argv=None) -> int:
     if sweep:
         depth = int(sweep[0].split("=")[1]) if "=" in sweep[0] else 1
         print(f"Sweeping {args[0]} ({len(data)} bytes), chains to depth {depth}")
-        run_sweep(data, depth, device=device)
+        try:
+            run_sweep(data, depth, device=device)
+        except SweepFailed as e:
+            print(e, file=sys.stderr)
+            return 1
         return 0
     levels = [int(x) for x in args[1:]] or None
     print(f"Benchmarking {args[0]} ({len(data)} bytes)")

@@ -18,7 +18,9 @@ Run one process for each rank:
         --num-processes N --coordinator HOST:PORT --out FILE [--device cuda|cpu]
 
 or through ``parallel/dryrun.py`` ``dryrun_multihost``, which spawns them.
-Each process writes "OK pI: ..." or "FAIL pI: ..." to its ``--out`` file.
+Each process writes "OK pI: ..." or "FAIL pI: ..." to its ``--out`` file;
+an OK line ends with the process's kernel launch counts (ops/launch.py),
+"launches {name: count, ...}", the kernels it launched only.
 """
 
 from __future__ import annotations
@@ -41,6 +43,7 @@ def worker_main(process_id: int, num_processes: int, coordinator: str,
     from ..core.bits import BitReader, BitWriter
     from ..entropy import ans as hans
     from ..io.stream import CompressedInputStream, CompressedOutputStream
+    from ..ops import launch
     from ..ops.ans_block import encode_ans0_wire
     from ..utils.corpus import mixed_corpus
     from ..utils.device import check_device
@@ -123,6 +126,7 @@ def worker_main(process_id: int, num_processes: int, coordinator: str,
                     raise RuntimeError("the level-1 stream does not round-trip")
             detail += (f"; level-1 stage across the ranks: {l1_data.size} B -> "
                        f"{len(wire1)} B, round-trip ok")
+        detail += f"; launches {({k: v for k, v in launch.launches.items() if v})}"
         result = "OK"
         dist.destroy_process_group()
     except Exception:
