@@ -41,7 +41,9 @@ Phases, one line each; any failure raises and the exit code is not 0:
      chunks of that corpus plus two edge chunks (one repeated byte; uniform
      random), ans1_scan (the order-1 lookup and the scan, fused) at the main
      path's full 2^20 steps of their real lanes (its plain version run and
-     timed once, ~100 s), ans1_compact on its words and on tiles cut from
+     timed once, ~100 s, in a thread while phase 1 builds the kernels and
+     the card is idle, joined before phase 2 times anything), ans1_compact
+     on its words and on tiles cut from
      them at nb 1, 2, 64 and 128, M 1 and 256, with every word flagged and
      none, then ans1_scan timed for one chunk and for 32 in one launch,
      beside the floor of its chain alone (csrc/ans1.cu scan_chain_kernel, SM
@@ -76,13 +78,14 @@ Phases, one line each; any failure raises and the exit code is not 0:
   9  ksort_rows, the row sort's own entry point (no codec path calls it),
      at the two shapes of phase 2 on fresh operands: rows sorted, operands
      permuted alike
- 10  the device suffix array (ops/bwt_device.py: torch.sort, cumsum and
+ 10  the device suffix array (ops/bwt_device.py: sorts, cumsum and
      scatter, no kernel of its own, so no row of the kernels line) against
      the port's native SA-IS on the six input classes of
      tests/test_bwt_tpu.py, the corpus's first 4 MiB block and 4 MiB of
      zeros (the worst case, log2 n rounds); for the two 4 MiB inputs its
      rounds, its card ms (CUDA events, warm) for the whole call and for the
-     doubling alone, a sort's ms, and the host's SA-IS, BWT assembly and
+     doubling alone, a sort's ms, one reading of the card's room (the
+     admission's mem_get_info), and the host's SA-IS, BWT assembly and
      native BWT forward ms; eight 4 MiB blocks one after another and in
      eight threads at once (as jobs 8 calls it), twice, with the peak
      allocation
@@ -119,11 +122,11 @@ Phases, one line each; any failure raises and the exit code is not 0:
      own, so no row of the kernels line; counted as lz_v1) under
      KANZI_TPU_DEVICE_LZ=legacy: on each 4 MiB block of the same 64 MiB,
      its sections on the card equal the port's device="cpu" run for the
-     first two blocks and every section decodes through the host inverse;
+     first block and every section decodes through the host inverse;
      one block's card ms by stage (hash ladder, extension, parse, token
      fetch; CUDA events, warm, median of 3), its host emission and the
      peak allocation; level 3 at jobs 8 (the engine a block), decoded on
-     the card and by the host coders, its first two blocks equal to a CPU
+     the card and by the host coders, its first block equal to a CPU
      run, its MB/s and bytes beside phase 6's; level 1, which keeps the
      writer's v3 batch and writes phase 7's bytes; and real_corpus(64
      MiB), its sha256 and sections, through level 3 under legacy against
@@ -165,14 +168,53 @@ Phases, one line each; any failure raises and the exit code is not 0:
      levels 0-9, --device cuda) against run_levels at None; e. one
      multihost worker (parallel/multihost.py) through dryrun_multihost(1,
      "cuda"), NCCL on the loopback: OK p0, its own launch counts
+ 16  the sizes kanzi's users run, on S = mixed_corpus(211,957,760, seed=12)
+     (silesia.tar's size) and G = S tiled to 1 GiB + 12,345 B; each stream
+     written at cuda and at None, decoded both ways, its launch counts
+     equal to what the gates give, its MB/s, seconds and peak bytes on the
+     card (allocated and reserved, reset per stream):
+     a. level 5 (ANS0) and level 3 (Huffman) on S at 4 MiB blocks, jobs 8
+     (51 blocks, the last of 2,242,560 B), equal to the host's stream;
+     b. ``python -m kanzi_tpu_torch.app -c -l 5 -b auto -j 8`` on S in a
+     file under KANZI_TPU_DEVICE_BWT=1, at --device cuda and none (the
+     two files equal; eight blocks of 26,494,720 B, a device SA and the
+     ANS0 encode kernels a block at cuda, nothing at none), then ``-d`` at
+     cuda (equal to S, ans0_decode a block), these three processes run
+     beside the other parts; in process, level 1 under
+     KANZI_TPU_DEVICE_LZ=1 at the same block size (the windowed engine);
+     c. transform NONE with ANS0 and HUFFMAN at 256 MiB blocks on S (one
+     block of 12,936 full chunks and a 14,336 B tail) and ANS1 at 64 MiB
+     on S's first 64 MiB + 12,345 B (16 order-1 chunks in one launch),
+     equal to the host's stream; d. level 1 under KANZI_TPU_DEVICE_LZ=1 at
+     1 GiB blocks, jobs 2, on G (one 1 GiB block through the windowed
+     engine, then 12,345 B); level 1 (b and d) has no byte gate against
+     the host parse: its first windowed group equals a CPU run of it, it
+     decodes both ways, and prints its ratio to the host parse;
+     e. the device suffix array (ops/bwt_device.py) alone at n = 2^30
+     (kanzi's BWT limit) and 2^30 - 16 of G, at S and at S's first 64, 32
+     and 4 MiB (the last two seeded with eight bytes and sorted by
+     torch.sort):
+     each admitted by the card's byte budget on an emptied cache, its
+     reserved peak within what it is admitted by (sa_bytes), checked on
+     the card by the linear check (check_suffix_array), those of 64 MiB
+     also against SA-IS, with its rounds, card ms, peak bytes and bytes a
+     position; then L = S tiled to 1.875 GiB: seven 256 MiB calls (L's
+     first 1.75 GiB) from seven threads through suffix_array_device and
+     the budget, each checked, and the BWT alone at -b 1g, jobs 2, on L
+     under KANZI_TPU_DEVICE_BWT=1 (two SAs of 2^30 and 0.875 x 2^30
+     positions at once from the writer's pool, admitted one at a time;
+     decoded at None, equal to L, its first block 2^30 + 33 B after the
+     BWT)
 The launch counts are set to 0 just before each of phases 3-9, each step
-of phase 12 and each stream of phases 13-15 and read just after it;
-the counts of phases 12-15 join the kernels line's.  Then the card line,
+of phase 12 and each stream of phases 13-16 and read just after it;
+the counts of phases 12-16 join the kernels line's.  Then the card line,
 one JSON line of the kernels (each with its bound: the larger of its bytes
 over 3.35 TB/s and its integer operations over 67 T/s), and the result
 line.
 ``--mesh`` runs phases 0-1 and 12 only and prints no result line;
-``--phase14`` and ``--phase15`` run phases 0-1 and 14, or 15, the same way.
+``--phase14`` and ``--phase15`` run phases 0-1 and 14, or 15, the same way;
+``--phase16`` phases 0-1 and 16 (``--phase16 e`` only the parts named, of
+abcde); ``--phase10`` phases 0 and 10 (no kernel is built).
 ``--quick`` stops after phase 2 and prints no result line, for the first
 call after a kernel changes; ``--phase2 ans0,huffman`` (any of floor, ans0,
 huffman, lz_words, ans1, ksort, and ans1_compact: the compaction's part of
@@ -851,15 +893,18 @@ def recip_check(dev, lr: int) -> dict:
     return {"recip_pairs": pairs, "recip_mismatches": bad, "recip_check_s": seconds}
 
 
-def phase2_ans1(dev, data: bytes) -> dict:
-    """The fused ans1_scan (lookup and scan) and compact against their plain
-    versions on 4 x 4 MiB chunks of the corpus and two edge chunks (one
-    repeated byte: every context holds one symbol, freq 2048 capped to 2047;
-    uniform random).  The scan is held to scan_chunks_ref(lookup1_ref(...))
-    at full length, the main path's 2^20 steps of the 24 real lanes; the
-    plain version takes ~8 tensor ops a step, ~100 s for those steps on the
-    card, so it runs, and is timed, once.  Then the reciprocal's exhaustive
-    check and the chain's floor, from scan_chain."""
+def start_plain_ans1(dev, data: bytes) -> dict:
+    """The inputs of phase2_ans1, 4 x 4 MiB chunks of the corpus and two
+    edge chunks (one repeated byte: every context holds one symbol, freq
+    2048 capped to 2047; uniform random), on the card, and their plain
+    order-1 scan, scan_chunks_ref(lookup1_ref(...)) at full length (the
+    main path's 2^20 steps of the 24 real lanes), started in a thread.  The
+    plain version takes ~8 tensor ops a step, ~100 s on the card, none a
+    kernel of the port, so it runs, timed once by CUDA events, while the
+    kernels build and the card is idle; main joins it before phase 2 times
+    anything."""
+    import threading
+
     import numpy as np
     import torch
 
@@ -873,21 +918,51 @@ def phase2_ans1(dev, data: bytes) -> dict:
     freq, cum = order1_tables(chunks)
     x = torch.from_numpy(chunks).to(dev)
     packed = A1.pack_tables(torch.from_numpy(freq).to(dev), torch.from_numpy(cum).to(dev))
+    res = {"x": x, "packed": packed}
+
+    def run():
+        try:
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            out = A1.scan_chunks_ref(A1.lookup1_ref(x, packed))
+            b.record()
+            b.synchronize()
+            res.update(out=out, ms=a.elapsed_time(b))
+        except Exception as e:          # re-raised by join_plain_ans1
+            res["error"] = e
+
+    res["thread"] = threading.Thread(target=run, daemon=True)
+    res["thread"].start()
+    return res
+
+
+def join_plain_ans1(plain: dict) -> dict:
+    plain["thread"].join()
+    if "error" in plain:
+        raise plain["error"]
+    return plain
+
+
+def phase2_ans1(dev, plain: dict) -> dict:
+    """The fused ans1_scan (lookup and scan) and compact against their plain
+    versions on start_plain_ans1's chunks, the scan against its plain run
+    there.  Then the reciprocal's exhaustive check and the chain's floor,
+    from scan_chain."""
+    import torch
+
+    from kanzi_tpu_torch.ops import ans1_cuda as A1
+
+    x, packed = plain["x"], plain["packed"]
     n, q = x.shape[0], BLOCK // 4
     rec = {}
 
     lk_r = A1.lookup1_ref(x, packed)
     check(bool((lk_r[4] & 2047 == 2047).all()), "the repeated byte's 2048 is not capped")
     sc = A1.scan_chunks(x, packed)
-    torch.cuda.synchronize()
-    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    a.record()
-    sc_r = A1.scan_chunks_ref(A1.lookup1_ref(x, packed))
-    b.record()
-    b.synchronize()
+    sc_r = join_plain_ans1(plain).pop("out")
     check(all(torch.equal(u, v) for u, v in zip(sc, sc_r)),
           "ans1_scan differs from its plain version")
-    rec["ans1_scan"] = {"max_abs_err": max_abs_err(sc, sc_r), "plain_ms": a.elapsed_time(b),
+    rec["ans1_scan"] = {"max_abs_err": max_abs_err(sc, sc_r), "plain_ms": plain["ms"],
                         **recip_check(dev, A1.LOG_RANGE1)}
     del sc_r
 
@@ -1113,11 +1188,11 @@ PHASE2_GROUPS = ("floor", "ans0", "huffman", "lz_words", "ans1", "ksort")
 PHASE2_PARTS = ("ans1_compact",)
 
 
-def phase2_kernels(dev, data: bytes, groups=PHASE2_GROUPS) -> dict:
+def phase2_kernels(dev, data: bytes, groups=PHASE2_GROUPS, plain: dict | None = None) -> dict:
     from kanzi_tpu_torch.utils.corpus import mixed_corpus
     rows = mixed_corpus(16 << 20, seed=7).reshape(-1, CHUNK)[::4]      # 256
     run = {"ans0": lambda: phase2_ans0(dev, rows), "huffman": lambda: phase2_huffman(dev, rows),
-           "lz_words": lambda: phase2_lz_words(dev, data), "ans1": lambda: phase2_ans1(dev, data),
+           "lz_words": lambda: phase2_lz_words(dev, data), "ans1": lambda: phase2_ans1(dev, plain),
            "ksort": lambda: phase2_ksort(dev),
            "ans1_compact": lambda: phase2_ans1_compact_alone(dev, data)}
     out = {}
@@ -1302,11 +1377,12 @@ def host_ms(fn, reps: int = 3) -> float:
 
 
 def phase10_sa(data: bytes, dev) -> dict:
-    """The device suffix array (ops/bwt_device.py, torch.sort + cumsum +
+    """The device suffix array (ops/bwt_device.py, sorts + cumsum +
     scatter, no kernel of its own) against the port's native SA-IS on every
     input of sa_inputs; for the two 4 MiB inputs its rounds, its card time
     (CUDA events, warm, median of 3) around the whole call and around the
-    doubling alone on a buffer already on the card, SA-IS's host time, the
+    doubling alone on a buffer already on the card, the host ms of one
+    reading of the card's room (the budget's admission), SA-IS's host time, the
     host's assembly of the BWT from an SA (what the gated BWT adds to the
     device SA) and the native BWT forward (SA-IS and assembly, what the gate
     replaces).  Then eight 4 MiB blocks of the corpus, as the writer's eight
@@ -1330,15 +1406,14 @@ def phase10_sa(data: bytes, dev) -> dict:
         sa = sa.astype(np.int64)
         if x.size < BLOCK:
             continue
-        npad = B._bucket(x.size + 1)
-        glob = torch.zeros(npad, dtype=torch.uint8, device=dev)
-        glob[:x.size] = torch.from_numpy(x.copy()).to(dev)
-        _, rounds = B.prefix_doubling(glob, x.size)
-        doubling = time_ms(lambda: B.prefix_doubling(glob, x.size), reps=3)
-        res[name] = {"n": int(x.size), "npad": npad, "rounds": rounds,
+        text = torch.from_numpy(x.copy()).to(dev)
+        _, rounds = B.prefix_doubling(text, x.size)
+        doubling = time_ms(lambda: B.prefix_doubling(text, x.size), reps=3)
+        res[name] = {"n": int(x.size), "rounds": rounds,
                      "card_ms": time_ms(lambda: B.suffix_array_device(x, device=dev), reps=3),
                      "doubling_ms": doubling, "ms_per_sort": doubling / (rounds + 1),
                      "sais_ms": host_ms(lambda: suffix_array_native(x)),
+                     "room_ms": host_ms(B.device_budget(dev).room),
                      "assemble_ms": host_ms(lambda: BWT()._assemble_forward(x, sa, 8)),
                      "native_bwt_ms": host_ms(lambda: bwt_forward_native(x, 8))}
     blocks = [np.frombuffer(data[i * BLOCK:(i + 1) * BLOCK], np.uint8) for i in range(8)]
@@ -1364,6 +1439,25 @@ def phase10_sa(data: bytes, dev) -> dict:
     res["eight_blocks"] = {"serial_ms": serial_s * 1e3, "threads_ms": threads_ms,
                            "threads_peak_bytes": peak, "sais_threads_ms": sais_threaded_s * 1e3}
     return res
+
+
+def print_phase10(r: dict, t: float) -> None:
+    print(f"phase 10: the device suffix array equals SA-IS on {', '.join(r['inputs'])}")
+    for name in ("corpus 4 MiB", "zeros 4 MiB"):
+        a = r[name]
+        print(f"phase 10: {name} (n {a['n']}): {a['rounds']} rounds after the seed; "
+              f"card {a['card_ms']:.4f} ms the whole call, {a['doubling_ms']:.4f} ms the "
+              f"doubling on the card, {a['ms_per_sort']:.4f} ms a sort (seed and rounds), "
+              f"{a['room_ms']:.4f} ms a reading of the card's room (host); "
+              f"host SA-IS {a['sais_ms']:.4f} ms; the BWT from an SA on the host "
+              f"(_assemble_forward) {a['assemble_ms']:.4f} ms; the native BWT forward "
+              f"(SA-IS and assembly in C++, one thread) {a['native_bwt_ms']:.4f} ms")
+    a = r["eight_blocks"]
+    print(f"phase 10: eight 4 MiB blocks of the corpus: one after another "
+          f"{a['serial_ms']:.4f} ms, in eight threads "
+          f"{', then '.join(f'{v:.4f}' for v in a['threads_ms'])} ms (peak "
+          f"{a['threads_peak_bytes']} B allocated on the card); host SA-IS in eight threads "
+          f"{a['sais_threads_ms']:.4f} ms; {time.perf_counter() - t:.1f} s")
 
 
 # phases 11 and 15 run a module as ``python -m <module>`` does (runpy), then
@@ -1794,12 +1888,17 @@ def v1_stage_ms(block: bytes, dev, reps: int = 3) -> dict:
     return res
 
 
+# blocks of phase 13's streams held to a CPU run of the v1 engine (~13 s a
+# block there): one, so that the script keeps its time with phase 16 added
+V1_CPU_BLOCKS = 1
+
+
 def phase13_v1(data: bytes, dev, prior: dict) -> dict:
-    """The v1 engine alone on every 4 MiB block of ``data`` (its first two
-    blocks' sections equal the port's device="cpu" run, every section
+    """The v1 engine alone on every 4 MiB block of ``data`` (its first
+    V1_CPU_BLOCKS blocks' sections equal the port's device="cpu" run, every section
     decodes through the host inverse), its stages on one block; then, under
     KANZI_TPU_DEVICE_LZ=legacy, level 3 (the engine a block, at jobs 8)
-    against phase 6 and its first two blocks against a CPU run, level 1
+    against phase 6 and its first V1_CPU_BLOCKS blocks against a CPU run, level 1
     (the writer's v3 batch: phase 7's bytes), and level 3 on
     real_corpus(64 MiB) against the host.  The launch counts are set to 0
     just before each stream's compress and read just after its decode on
@@ -1820,7 +1919,7 @@ def phase13_v1(data: bytes, dev, prior: dict) -> dict:
     torch.cuda.synchronize()
     engine_s = time.perf_counter() - t
     t = time.perf_counter()
-    for i in range(2):
+    for i in range(V1_CPU_BLOCKS):
         want = V.lzx_forward_device(blocks[i], True, 4, device="cpu")
         check((want is None and secs[i] is None)
               or (want is not None and secs[i] is not None and np.array_equal(want, secs[i])),
@@ -1832,7 +1931,7 @@ def phase13_v1(data: bytes, dev, prior: dict) -> dict:
     out["engine"] = {"blocks": len(blocks), "mb_s": len(data) / 1e6 / engine_s,
                      "bytes_out": sum(b.size if s is None else s.size
                                       for b, s in zip(blocks, secs)),
-                     "skipped": sum(s is None for s in secs), "cpu_two_blocks_s": cpu_s,
+                     "skipped": sum(s is None for s in secs), "cpu_head_s": cpu_s,
                      "stages_ms": v1_stage_ms(data[:BLOCK], dev)}
 
     def level(label: str, lvl_data: bytes, chain: tuple, must: tuple,
@@ -1841,7 +1940,7 @@ def phase13_v1(data: bytes, dev, prior: dict) -> dict:
         port compresses and decodes on the card (the launch counts of
         ``must`` and the engine's set to 0 just before, read just after;
         each of ``must`` has to have run), then the host coders decode;
-        ``cpu_head``: its first two blocks against the port's CPU run;
+        ``cpu_head``: its first V1_CPU_BLOCKS blocks against the port's CPU run;
         ``host``: the host coders' compress beside it."""
         ctx = {"transform": chain[0], "entropy": chain[1], "blockSize": BLOCK, "jobs": 8}
         mb = len(lvl_data) / 1e6
@@ -1867,11 +1966,11 @@ def phase13_v1(data: bytes, dev, prior: dict) -> dict:
                   f"phase 13: {label}: a kernel never ran: {r['launches']}")
             if cpu_head:
                 t = time.perf_counter()
-                head = _compress(port.CompressedOutputStream, lvl_data[:2 * BLOCK], ctx,
-                                 device="cpu")
+                head = _compress(port.CompressedOutputStream,
+                                 lvl_data[:V1_CPU_BLOCKS * BLOCK], ctx, device="cpu")
                 r["cpu_head_s"] = time.perf_counter() - t
-                check(first_frames(blob, 2) == first_frames(head, 2),
-                      f"phase 13: {label}: the first two blocks differ from the port's CPU run")
+                check(first_frames(blob, V1_CPU_BLOCKS) == first_frames(head, V1_CPU_BLOCKS),
+                      f"phase 13: {label}: the first blocks differ from the port's CPU run")
         finally:
             del os.environ["KANZI_TPU_DEVICE_LZ"]
         t = time.perf_counter()
@@ -1909,8 +2008,8 @@ def print_phase13(r: dict, prior: dict) -> None:
     s = e["stages_ms"]
     print(f"phase 13: the v1 engine alone on {e['blocks']} blocks of 4 MiB: "
           f"{e['bytes_out']} B out ({e['skipped']} skipped), {e['mb_s']:.2f} MB/s; the first "
-          f"two blocks equal the port's CPU run ({e['cpu_two_blocks_s']:.1f} s), every section "
-          f"decodes; card {card}")
+          f"{V1_CPU_BLOCKS} block(s) equal the port's CPU run ({e['cpu_head_s']:.1f} s), every "
+          f"section decodes; card {card}")
     print(f"phase 13: one 4 MiB block by stage (CUDA events, median of 3): ladder "
           f"{s['ladder']:.4f} ms, extension {s['extension']:.4f} ms, parse {s['parse']:.4f} "
           f"ms, fetch {s['fetch']:.4f} ms, host emission {s['emission']:.4f} ms; the whole call "
@@ -1925,7 +2024,7 @@ def print_phase13(r: dict, prior: dict) -> None:
               f"compress MB/s {a['compress_mb_s']['port']:.2f}, decompress MB/s port "
               f"{a['decompress_mb_s']['port']:.2f} host {a['decompress_mb_s']['host']:.2f}"
               f"{was}; launches {a['launches']}; peak {a['peak_bytes']} B allocated"
-              + (f"; first two blocks equal the CPU run's ({a['cpu_head_s']:.1f} s)"
+              + (f"; first {V1_CPU_BLOCKS} block(s) equal the CPU run's ({a['cpu_head_s']:.1f} s)"
                  if "cpu_head_s" in a else "; phase 7's stream, byte for byte")
               + f"; card {card}")
     a = r["real"]
@@ -1943,7 +2042,7 @@ WINDOW_BLOCK = 32 << 20    # over MAX_FLAT: the windowed 256 KiB-row engine
 MAX_FLAT_BLOCK = 16 << 20  # MAX_FLAT: the flat engine's largest bucket
 
 
-def first_group(block: bytes, dev) -> dict:
+def first_group(block: bytes, dev, phase: str = "phase 14", timing: bool = True) -> dict:
     """The windowed engine's first group (GROUP_ROWS rows of ``block`` in
     _block_rows' layout) through _match_stage and _parse_stage on the card
     and on the CPU: (pk, dist) must be equal.  Then lz_words at that group's
@@ -1967,13 +2066,14 @@ def first_group(block: bytes, dev) -> dict:
     want = run("cpu")
     cpu_s = time.perf_counter() - t
     check(got[2] == want[2] > 0 and torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
-          "phase 14: the windowed engine's first group on the card differs from the CPU's")
+          f"{phase}: the windowed engine's first group on the card differs from the CPU's")
     x = torch.from_numpy(grp[0]).to(dev)
     ws, ref = L.lz_words(x), L.lz_words_ref(x)
     check(all(torch.equal(g, w) for g, w in zip(ws, ref)),
-          f"phase 14: lz_words at {tuple(x.shape)} differs from its plain version")
+          f"{phase}: lz_words at {tuple(x.shape)} differs from its plain version")
     rec = {"lz_words": {"max_abs_err": max_abs_err(ws, ref)}}
-    timed(rec, "lz_words", lambda: L.lz_words(x), lambda: L.lz_words_ref(x), x, x.numel())
+    if timing:
+        timed(rec, "lz_words", lambda: L.lz_words(x), lambda: L.lz_words_ref(x), x, x.numel())
     return {"rows": grp[0].shape[0], "tokens": got[2], "cpu_s": cpu_s,
             "lz_words": rec["lz_words"]}
 
@@ -2311,8 +2411,9 @@ def gate_launches(entropy: str, data, block: int, blob: bytes) -> dict:
     return {k: v for k, v in out.items() if v}
 
 
-def config_stream(label: str, data: bytes, ctx: dict, dev, expect) -> dict:
-    """One stream of phase 15, written at ``dev`` and at None: the card's
+def config_stream(label: str, data: bytes, ctx: dict, dev, expect,
+                  phase: str = "phase 15") -> dict:
+    """One stream of phase 15 (or ``phase``), written at ``dev`` and at None: the card's
     bytes must equal the host's, and decode at ``dev`` and at None.  The
     launch counts are set to 0 just before the card's compress and read just
     after its decode; they must equal ``expect(blob)`` (kernel -> launches,
@@ -2332,16 +2433,16 @@ def config_stream(label: str, data: bytes, ctx: dict, dev, expect) -> dict:
     torch.cuda.synchronize()
     t2 = time.perf_counter()
     got = nonzero_launches()
-    check(out == data, f"phase 15: {label}: the decode on the card differs from the input")
+    check(out == data, f"{phase}: {label}: the decode on the card differs from the input")
     ref = _compress(port.CompressedOutputStream, data, ctx, device=None)
     t3 = time.perf_counter()
-    check(blob == ref, f"phase 15: {label}: the card's stream differs from the host's "
+    check(blob == ref, f"{phase}: {label}: the card's stream differs from the host's "
                        f"({len(blob)} B, host {len(ref)} B)")
     out = _decompress(port.CompressedInputStream, blob, jobs, device=None)
     t4 = time.perf_counter()
-    check(out == data, f"phase 15: {label}: the host's decode differs from the input")
+    check(out == data, f"{phase}: {label}: the host's decode differs from the input")
     want = expect(blob)
-    check(got == want, f"phase 15: {label}: launches {got}, the gates give {want}")
+    check(got == want, f"{phase}: {label}: launches {got}, the gates give {want}")
     return {"bytes_in": len(data), "bytes_out": len(blob), "launches": got,
             "sha256": hashlib.sha256(blob).hexdigest(),
             "s": [t1 - t0, t2 - t1, t3 - t2, t4 - t3]}
@@ -2641,6 +2742,517 @@ def print_phase15(r: dict) -> None:
     print(f"phase 15: e. multihost worker over NCCL on lo: {e['line']}; {e['seconds']:.1f} s")
 
 
+# phase 16: the sizes kanzi's users run.  silesia.tar's size (BASELINE.md:8,
+# kanzi's own benchmark file; mixed_corpus stands in for it), -b auto (the
+# file size over the jobs, app/__main__.py _parse_block_size) and kanzi's
+# 1 GiB block limit (io/stream.py MAX_BITSTREAM_BLOCK_SIZE)
+SILESIA_SIZE = 211_957_760
+LIMIT_BLOCK = 1 << 30
+LIMIT_SIZE = LIMIT_BLOCK + EDGE_TAIL        # G: S tiled, for level 1 and the SA
+AUTO_JOBS = 8
+BIG_BLOCK = 256 << 20                       # part c: S in one block
+ANS1_BLOCK = 64 << 20                       # part c: 16 order-1 chunks a launch
+SA_SIZES = (LIMIT_BLOCK, LIMIT_BLOCK - 16, SILESIA_SIZE, 64 << 20, 32 << 20, 4 << 20)
+SA_THREADS = 7                              # part e: 256 MiB calls from threads
+PAIR_SIZE = (2 << 30) - (128 << 20)         # part e: L, a 1 GiB block and one of 0.875
+PHASE16_PARTS = "abcde"
+LEVEL5 = ("TEXT+UTF+BWT+RANK+ZRLT", "ANS0")
+LEVEL3 = ("TEXT+UTF+PACK+MM+LZX", "HUFFMAN")
+
+
+def scale_inputs() -> tuple:
+    """S, mixed_corpus(SILESIA_SIZE, seed=12), and G, S tiled to LIMIT_SIZE
+    (its repeats 212 MB apart, beyond every LZ window)."""
+    import numpy as np
+
+    from kanzi_tpu_torch.utils.corpus import mixed_corpus
+    s = mixed_corpus(SILESIA_SIZE, seed=12)
+    return s, np.resize(s, LIMIT_SIZE)
+
+
+def entropy_inputs(blob: bytes, transforms: int) -> list:
+    """(the bytes its entropy stage took, stored as a copy) of each block of
+    a stream whose chain has ``transforms`` functions, from the block
+    headers (the mode byte, the skip flags where the chain is longer than
+    four, then the transformed length, big-endian)."""
+    from kanzi_tpu_torch.io import stream as port
+    out = []
+    with port.CompressedInputStream(io.BytesIO(blob), {}, device=None) as cis:
+        while (frame := cis._frame_next()) is not None:
+            head = bytes(frame[1][:8])
+            mode = head[0]
+            copied = bool(mode & port.COPY_BLOCK_MASK)
+            skip = bool(mode & port.TRANSFORMS_MASK) and (not copied or transforms > 4)
+            size = 1 + ((mode >> 5) & 3)
+            out.append((int.from_bytes(head[1 + skip:1 + skip + size], "big"), copied))
+    return out
+
+
+def level_launches(entropy: str, transforms: int):
+    """The launches the ANS0 or Huffman gates give a level's stream: one of
+    each encode kernel a block whose entropy input holds four full chunks,
+    and of the decode kernel a block that the decode gate sends to the card
+    and the stream holds entropy-coded (every block of these inputs has a
+    chunk of two or more symbols)."""
+    def expect(blob: bytes) -> dict:
+        out = dict.fromkeys(FAMILY[entropy], 0)
+        for size, copied in entropy_inputs(blob, transforms):
+            nfull = size // CHUNK
+            enc = nfull >= 4
+            dec = (enc if entropy == "ANS0" else nfull >= 1) and not copied
+            for k in FAMILY[entropy]:
+                out[k] += int(dec if k.endswith("_decode") else enc)
+        return {k: v for k, v in out.items() if v}
+    return expect
+
+
+def scale_stream(label: str, data: bytes, ctx: dict, dev, expect) -> dict:
+    """config_stream for phase 16, with the card's peak bytes allocated and
+    reserved over it (reset just before) and the MB/s of each way."""
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    r = config_stream(label, data, ctx, dev, expect, phase="phase 16")
+    r.update(label=label, peak_alloc=torch.cuda.max_memory_allocated(),
+             peak_reserved=torch.cuda.max_memory_reserved(),
+             mb_s=[len(data) / 1e6 / s for s in r["s"]])
+    return r
+
+
+def lz_launches(sizes: list, jobs: int) -> int:
+    """lz_words launches of a level-1 stream under KANZI_TPU_DEVICE_LZ=1
+    written in one write: the writer's batches of ``jobs`` blocks, each one
+    launch a flat dispatch (blocks of one bucket, at most FLAT_GROUP and
+    MAX_DISPATCH positions) and one a windowed group of GROUP_ROWS rows."""
+    from kanzi_tpu_torch.ops import lz_sort as T
+    total = 0
+    for b0 in range(0, len(sizes), jobs):
+        batch = sizes[b0:b0 + jobs]
+        buckets: dict = {}
+        for n in batch:
+            if T.MIN_BLOCK_LENGTH <= n <= T.MAX_FLAT:
+                buckets[T._flat_bucket(n)] = buckets.get(T._flat_bucket(n), 0) + 1
+        for bucket, count in buckets.items():
+            g = max(1, min(T.FLAT_GROUP, T.MAX_DISPATCH // bucket))
+            total += -(-count // g)
+        rows = sum(-(-n // T.STRIDE) for n in batch if n > T.MAX_FLAT)
+        total += -(-rows // T.GROUP_ROWS)
+    return total
+
+
+@contextlib.contextmanager
+def counted_calls(module, name: str):
+    """``module.name`` replaced for a block by a wrapper that counts its
+    calls; yields the list of calls."""
+    fn, calls = getattr(module, name), []
+
+    def run(*a, **kw):
+        calls.append(1)
+        return fn(*a, **kw)
+
+    setattr(module, name, run)
+    try:
+        yield calls
+    finally:
+        setattr(module, name, fn)
+
+
+def lz_scale_stream(label: str, data, block: int, jobs: int, dev) -> dict:
+    """Level 1 under KANZI_TPU_DEVICE_LZ=1 at ``block``-byte blocks, written
+    at ``dev`` and at None (the host parse).  Phase 14's gates: no byte gate
+    against the host parse (the windowed engine reaches back only within a
+    row), the first block's first windowed group equal to a CPU run of it,
+    the stream decoded at ``dev`` and at None, each block by the native LZX
+    inverse (a block's sections of 256 MiB or more once fell to the Python
+    mirror); lz_words launched as lz_launches gives, nothing else."""
+    import torch
+
+    from kanzi_tpu_torch.io import stream as port
+    from kanzi_tpu_torch.ops import launch
+    from kanzi_tpu_torch.ops import lz_sort as T
+    from kanzi_tpu_torch.transforms import lz
+
+    raw = data.tobytes()
+    ctx = {"transform": "LZX", "entropy": "NONE", "blockSize": block, "jobs": jobs}
+    sizes = [min(block, len(raw) - i) for i in range(0, len(raw), block)]
+    r: dict = {"label": label, "bytes_in": len(raw),
+               "rows": sum(-(-n // T.STRIDE) for n in sizes if n > T.MAX_FLAT)}
+    with counted_calls(lz, "_lzx_inverse_py") as mirrored:
+        with env_vars(KANZI_TPU_DEVICE_LZ="1"):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            launch.reset_launches()
+            t0 = time.perf_counter()
+            blob = _compress(port.CompressedOutputStream, raw, ctx, device=dev)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            out = _decompress(port.CompressedInputStream, blob, jobs, device=dev)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            got = nonzero_launches()
+            r.update(peak_alloc=torch.cuda.max_memory_allocated(),
+                     peak_reserved=torch.cuda.max_memory_reserved())
+            check(out == raw, f"phase 16: {label}: the decode on the card differs from the input")
+            del out
+            want = {"lz_words": lz_launches(sizes, jobs)}
+            check(got == want, f"phase 16: {label}: launches {got}, the gate gives {want}")
+            r["first_group"] = first_group(raw[:block], dev, f"phase 16: {label}",
+                                           timing=False)
+        t3 = time.perf_counter()
+        ref = _compress(port.CompressedOutputStream, raw, ctx, device=None)
+        t4 = time.perf_counter()
+        out = _decompress(port.CompressedInputStream, blob, jobs, device=None)
+        t5 = time.perf_counter()
+        check(out == raw, f"phase 16: {label}: the host's decode differs from the input")
+    check(not mirrored, f"phase 16: {label}: a decode took the Python LZX inverse "
+                        f"{len(mirrored)} times, not the native one")
+    s = [t1 - t0, t2 - t1, t4 - t3, t5 - t4]
+    r.update(bytes_out=len(blob), host_bytes_out=len(ref), ratio=len(blob) / len(ref),
+             launches=got, s=s, mb_s=[len(raw) / 1e6 / v for v in s])
+    return r
+
+
+def sa_device_call(x, dev, sais=None) -> dict:
+    """One device SA of ``x`` (uint8, numpy) admitted by the card's budget,
+    on an emptied cache: the text uploaded, prefix_doubling, the linear
+    check on the card (check_suffix_array), and, with ``sais`` (SA-IS's),
+    equality with it.  Its rounds, card ms (CUDA events around the admitted
+    call), the peak bytes allocated and reserved over upload and call, each
+    over n; the reserved peak must be within sa_bytes(n), what the budget
+    admits the call by."""
+    import numpy as np
+    import torch
+
+    from kanzi_tpu_torch.ops import bwt_device as B
+
+    n = x.size
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base, base_reserved = torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
+    torch.cuda.reset_peak_memory_stats()
+    text = torch.from_numpy(x).to(dev)
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    with B.admitted(dev, n):
+        sa, rounds = B.prefix_doubling(text, n)
+    b.record()
+    b.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    reserved = torch.cuda.max_memory_reserved() - base_reserved
+    check(reserved <= B.sa_bytes(n), f"phase 16: e. the device SA of n = {n} reserved "
+                                     f"{reserved} B, over the {B.sa_bytes(n)} B it is "
+                                     f"admitted by")
+    t = time.perf_counter()
+    check(B.check_suffix_array(text, sa), f"phase 16: e. the device SA of n = {n} fails the "
+                                          f"linear check")
+    check_s = time.perf_counter() - t
+    if sais is not None:
+        check(np.array_equal(sa.cpu().numpy(), sais),
+              f"phase 16: e. the device SA of n = {n} differs from SA-IS")
+    return {"n": n, "rounds": rounds, "card_ms": a.elapsed_time(b),
+            "peak_alloc": peak, "peak_reserved": reserved, "bytes_per_n": peak / n,
+            "reserved_per_n": reserved / n, "check_s": check_s, "reckoned": B.sa_bytes(n)}
+
+
+def sa_threads(l, dev) -> dict:
+    """SA_THREADS device SAs of 256 MiB (L's first SA_THREADS x 256 MiB) from
+    as many threads through suffix_array_device and the card's budget, each
+    checked on the card; the most calls the budget held at once, the calls
+    that waited, the seconds and the peak bytes."""
+    import concurrent.futures as cf
+
+    import torch
+
+    from kanzi_tpu_torch.ops import bwt_device as B
+
+    blocks = [l[i * BIG_BLOCK:(i + 1) * BIG_BLOCK] for i in range(SA_THREADS)]
+    budget = B.device_budget(dev)
+    budget.peak, waits = budget.in_use, budget.waits
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base, base_reserved = torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    with cf.ThreadPoolExecutor(SA_THREADS) as pool:
+        sas = list(pool.map(lambda x: B.suffix_array_device(x, device=dev), blocks))
+    threads_s = time.perf_counter() - t
+    r = {"n": BIG_BLOCK, "count": SA_THREADS, "s": threads_s,
+         "peak_alloc": torch.cuda.max_memory_allocated() - base,
+         "peak_reserved": torch.cuda.max_memory_reserved() - base_reserved,
+         "at_once": budget.peak // B.sa_bytes(BIG_BLOCK), "capacity": budget.capacity,
+         "waits": budget.waits - waits}
+    for x, sa in zip(blocks, sas):
+        check(B.check_suffix_array(torch.from_numpy(x).to(dev), torch.from_numpy(sa).to(dev)),
+              "phase 16: e. a 256 MiB device SA from the threads fails the linear check")
+    return r
+
+
+def sa_pair_stream(l, dev) -> dict:
+    """The BWT alone (level 5's gated stage, no entropy stage) at -b 1g,
+    jobs 2, on L under KANZI_TPU_DEVICE_BWT=1 at ``dev``: two device SAs of
+    2^30 and L - 2^30 positions from the writer's two pool threads at once,
+    which the budget admits one at a time; decoded at None, equal to L (the
+    first block's transformed length, 2^30 + 33 B, is over the cap that
+    kanzi_tpu's reader sets).  The SA is unique and any other gives a BWT
+    that does not invert; the host's stream is not written (two SA-IS runs
+    of 1 GiB take minutes)."""
+    import torch
+
+    from kanzi_tpu_torch.io import stream as port
+    from kanzi_tpu_torch.ops import bwt_device as B
+    from kanzi_tpu_torch.ops import launch
+
+    raw = l.tobytes()
+    ctx = {"transform": "BWT", "entropy": "NONE", "blockSize": LIMIT_BLOCK, "jobs": 2}
+    budget = B.device_budget(dev)
+    budget.peak, waits = budget.in_use, budget.waits
+    with env_vars(KANZI_TPU_DEVICE_BWT="1"):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base, base_reserved = torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
+        torch.cuda.reset_peak_memory_stats()
+        launch.reset_launches()
+        t0 = time.perf_counter()
+        blob = _compress(port.CompressedOutputStream, raw, ctx, device=dev)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        got = nonzero_launches()
+    r = {"bytes_in": len(raw), "bytes_out": len(blob), "launches": got,
+         "peak_alloc": torch.cuda.max_memory_allocated() - base,
+         "peak_reserved": torch.cuda.max_memory_reserved() - base_reserved,
+         "at_once": budget.peak // B.sa_bytes(LIMIT_BLOCK), "waits": budget.waits - waits}
+    check(got == {"suffix_array": 2}, f"phase 16: e. the -b 1g BWT stream launched {got}")
+    out = _decompress(port.CompressedInputStream, blob, 2, device=None)
+    t2 = time.perf_counter()
+    check(out == raw, "phase 16: e. the -b 1g BWT stream does not decode to L")
+    r["s"] = [t1 - t0, t2 - t1]
+    r["mb_s"] = [len(raw) / 1e6 / v for v in r["s"]]
+    return r
+
+
+def sa_group(s, g, dev) -> dict:
+    """Part e: the device SA alone at each of SA_SIZES (G's or S's first n
+    bytes), each by sa_device_call, those of 64 MiB and less also against SA-IS; then
+    L = S tiled to PAIR_SIZE: sa_threads on its first 1.75 GiB and
+    sa_pair_stream on all of it."""
+    import numpy as np
+
+    from kanzi_tpu_torch.ops import launch
+    from kanzi_tpu_torch.utils.native_transforms import suffix_array_native
+
+    launch.reset_launches()
+    calls = []
+    for n in SA_SIZES:
+        x = (s if n <= s.size else g)[:n]
+        calls.append(sa_device_call(x, dev, suffix_array_native(x) if n <= 64 << 20 else None))
+    l = np.resize(s, PAIR_SIZE)
+    threads = sa_threads(l, dev)
+    got = nonzero_launches()
+    check(got == {"suffix_array": len(SA_SIZES) + SA_THREADS}, f"phase 16: e. launches {got}")
+    pair = sa_pair_stream(l, dev)
+    got["suffix_array"] += pair["launches"]["suffix_array"]
+    return {"calls": calls, "threads": threads, "pair": pair, "launches": got}
+
+
+def start_auto_cli(s) -> dict:
+    """Part b's CLI runs, in a thread beside the other parts: S written to a
+    file, ``python -m kanzi_tpu_torch.app -c -l 5 -b auto -j 8`` under
+    KANZI_TPU_DEVICE_BWT=1 at --device cuda, then at none (the two files
+    equal), then ``-d`` at cuda (equal to S); each run's launch counts."""
+    import shutil
+    import tempfile
+    import threading
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_scale_")
+    src = os.path.join(tmp, "silesia_size.bin")
+    s.tofile(src)
+    res: dict = {"tmp": tmp}
+
+    def run():
+        try:
+            blobs = {}
+            for device in ("cuda", "none"):
+                dst = os.path.join(tmp, device + ".knz")
+                t = time.perf_counter()
+                out, counts = run_cli(["-c", "-l", "5", "-b", "auto", "-j", str(AUTO_JOBS), "-f",
+                                       "-i", src, "-o", dst, "--device", device], "1")
+                res[device] = {"wall_s": time.perf_counter() - t, "out": out,
+                               "launches": {k: v for k, v in counts["launches"].items() if v}}
+                with open(dst, "rb") as fh:
+                    blobs[device] = fh.read()
+            res["equal"] = blobs["cuda"] == blobs["none"]
+            res["bytes_out"] = len(blobs["cuda"])
+            res["blocks"] = len(entropy_inputs(blobs["cuda"], 5))
+            dst = os.path.join(tmp, "back.bin")
+            t = time.perf_counter()
+            out, counts = run_cli(["-d", "-j", str(AUTO_JOBS), "-f", "-i",
+                                   os.path.join(tmp, "cuda.knz"), "-o", dst, "--device", "cuda"])
+            res["decompress"] = {"wall_s": time.perf_counter() - t, "out": out,
+                                 "launches": {k: v for k, v in counts["launches"].items() if v}}
+            with open(dst, "rb") as fh:
+                res["back_equal"] = fh.read() == s.tobytes()
+        except Exception as e:          # re-raised by finish_auto_cli
+            res["error"] = e
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+
+    res["thread"] = threading.Thread(target=run, daemon=True)
+    res["t0"] = time.perf_counter()
+    res["thread"].start()
+    return res
+
+
+def finish_auto_cli(res: dict, block: int) -> dict:
+    """Wait for start_auto_cli's runs and check them: the files equal, the
+    decode equal to S, ``block``-byte blocks, one device SA and one launch
+    of each ANS0 encode kernel a block at cuda, nothing at none, one
+    ans0_decode a block on the card's decode."""
+    res["thread"].join()
+    if "error" in res:
+        raise res["error"]
+    blocks = -(-SILESIA_SIZE // block)
+    check(res["equal"], "phase 16: b. the -b auto files at --device cuda and none differ")
+    check(res["back_equal"], "phase 16: b. -d --device cuda of the -b auto file differs from S")
+    check(res["blocks"] == blocks, f"phase 16: b. {res['blocks']} blocks, -b auto gives {blocks}")
+    want = {"suffix_array": blocks, **dict.fromkeys(ANS0_KERNELS[:3], blocks)}
+    check(res["cuda"]["launches"] == want,
+          f"phase 16: b. the CLI at cuda launched {res['cuda']['launches']}, want {want}")
+    check(not res["none"]["launches"], f"phase 16: b. the CLI at none launched "
+                                       f"{res['none']['launches']}")
+    check(res["decompress"]["launches"] == {"ans0_decode": blocks},
+          f"phase 16: b. the CLI's decode launched {res['decompress']['launches']}")
+    return {k: res[k] for k in ("cuda", "none", "decompress", "bytes_out", "blocks")} | {
+        "wall_s": time.perf_counter() - res["t0"], "block": block,
+        "mb_s": {"cuda": SILESIA_SIZE / 1e6 / (cli_ms(res["cuda"]["out"]) / 1e3),
+                 "none": SILESIA_SIZE / 1e6 / (cli_ms(res["none"]["out"]) / 1e3),
+                 "decompress": SILESIA_SIZE / 1e6 / (cli_ms(res["decompress"]["out"]) / 1e3)}}
+
+
+def phase16_scale(dev, parts: str = PHASE16_PARTS) -> dict:
+    """Parts a-e of phase 16 (those named in ``parts``), each group timed;
+    part b's CLI runs start first and run beside the others in a thread."""
+    from kanzi_tpu_torch.app.__main__ import _parse_block_size
+
+    t = time.perf_counter()
+    s, g = scale_inputs()
+    out: dict = {"inputs_s": time.perf_counter() - t}
+    auto = _parse_block_size("auto", SILESIA_SIZE, AUTO_JOBS)
+    cli = start_auto_cli(s) if "b" in parts else None
+    raw = s.tobytes()
+    steps = []
+    try:
+        if "e" in parts:
+            t = time.perf_counter()
+            out["e"] = sa_group(s, g, dev)
+            out["e"]["seconds"] = time.perf_counter() - t
+            steps.append(out["e"])
+        if "a" in parts:
+            t = time.perf_counter()
+            runs = []
+            for (tr, ent), nfun in ((LEVEL5, 5), (LEVEL3, 5)):
+                ctx = {"transform": tr, "entropy": ent, "blockSize": BLOCK, "jobs": 8}
+                runs.append(scale_stream(f"a. {tr} + {ent} at 4 MiB blocks, jobs 8", raw, ctx,
+                                         dev, level_launches(ent, nfun)))
+            out["a"] = {"runs": runs, "seconds": time.perf_counter() - t}
+            steps += runs
+        if "c" in parts:
+            t = time.perf_counter()
+            runs = []
+            for ent, block, data in (("ANS0", BIG_BLOCK, s), ("HUFFMAN", BIG_BLOCK, s),
+                                     ("ANS1", ANS1_BLOCK, s[:ANS1_BLOCK + EDGE_TAIL])):
+                ctx = {"transform": "NONE", "entropy": ent, "blockSize": block, "jobs": 8}
+                runs.append(scale_stream(f"c. NONE + {ent} at {block}-byte blocks", data.tobytes(),
+                                         ctx, dev, functools.partial(gate_launches, ent, data,
+                                                                     block)))
+            out["c"] = {"runs": runs, "seconds": time.perf_counter() - t}
+            steps += runs
+        if "b" in parts:
+            t = time.perf_counter()
+            out["b"] = {"level1": lz_scale_stream(f"b. LZX + NONE at -b auto ({auto} B), jobs 8",
+                                                  s, auto, AUTO_JOBS, dev)}
+            steps.append(out["b"]["level1"])
+        if "d" in parts:
+            t = time.perf_counter()
+            out["d"] = lz_scale_stream(f"d. LZX + NONE at -b 1g, jobs 2", g, LIMIT_BLOCK, 2, dev)
+            out["d"]["seconds"] = time.perf_counter() - t
+            steps.append(out["d"])
+        if cli is not None:
+            t = time.perf_counter()
+            out["b"]["cli"] = finish_auto_cli(cli, auto)
+            out["b"]["seconds"] = out["b"]["cli"]["wall_s"]
+    finally:
+        if cli is not None and cli["thread"].is_alive():
+            cli["thread"].join()
+    launches: dict = {}
+    for step in steps:
+        for k, v in step["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    if cli is not None:
+        for k, v in cli["cuda"]["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+        for k, v in cli["decompress"]["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    out["launches"] = launches
+    return out
+
+
+def _scale_text(r: dict) -> str:
+    m = r["mb_s"]
+    return (f"{r['bytes_in']} B -> {r['bytes_out']} B; MB/s card compress {m[0]:.2f} "
+            f"decompress {m[1]:.2f}, host compress {m[2]:.2f} decompress {m[3]:.2f}; peak "
+            f"{r['peak_alloc']} B allocated, {r['peak_reserved']} B reserved; seconds "
+            f"{' '.join(f'{v:.1f}' for v in r['s'])}; launches {r['launches']}")
+
+
+def print_phase16(r: dict) -> None:
+    card = card_line()
+    if "e" in r:
+        for c in r["e"]["calls"]:
+            print(f"phase 16: e. device SA of n = {c['n']} (npad {c['n']}): {c['rounds']} "
+                  f"rounds after the seed, card {c['card_ms']:.1f} ms, peak {c['peak_alloc']} B "
+                  f"allocated ({c['bytes_per_n']:.2f} B a position), {c['peak_reserved']} B "
+                  f"reserved ({c['reserved_per_n']:.2f} B a position; admitted by "
+                  f"{c['reckoned']} B); the linear check passed on the card "
+                  f"({c['check_s']:.1f} s){'; equal to SA-IS' if c['n'] <= 64 << 20 else ''}; "
+                  f"card {card}")
+        th = r["e"]["threads"]
+        print(f"phase 16: e. {th['count']} device SAs of {th['n']} B from {th['count']} threads: "
+              f"{th['s']:.1f} s, peak {th['peak_alloc']} B allocated, {th['peak_reserved']} B "
+              f"reserved; at most {th['at_once']} calls admitted at once by the budget of "
+              f"{th['capacity']} B, {th['waits']} waited; each passed the linear check; card "
+              f"{card}")
+        u = r["e"]["pair"]
+        print(f"phase 16: e. BWT + NONE at -b 1g, jobs 2, under KANZI_TPU_DEVICE_BWT=1 on "
+              f"{u['bytes_in']} B: {u['bytes_out']} B; MB/s card compress {u['mb_s'][0]:.2f}, "
+              f"host decompress {u['mb_s'][1]:.2f} (equal to L); seconds "
+              f"{' '.join(f'{v:.1f}' for v in u['s'])}; at most {u['at_once']} SA admitted at "
+              f"once, {u['waits']} waited; peak {u['peak_alloc']} B allocated, "
+              f"{u['peak_reserved']} B reserved; launches {u['launches']}; "
+              f"{r['e']['seconds']:.1f} s for part e; card {card}")
+    for key in ("a", "c"):
+        for u in r.get(key, {}).get("runs", []):
+            print(f"phase 16: {u['label']}: {_scale_text(u)}; equal to the host's stream, "
+                  f"decoded at cuda and None; card {card}")
+    for u in ([r["b"]["level1"]] if "b" in r else []) + ([r["d"]] if "d" in r else []):
+        g = u["first_group"]
+        print(f"phase 16: {u['label']}: {_scale_text(u)}; {u['rows']} windowed rows; "
+              f"{u['ratio']:.4f} x the host parse's {u['host_bytes_out']} B; first group "
+              f"({g['rows']} rows) equal to the CPU's ({g['tokens']} tokens, {g['cpu_s']:.1f} s "
+              f"on the CPU); decoded at cuda and None; card {card}")
+    if "b" in r and "cli" in r["b"]:
+        c = r["b"]["cli"]
+        print(f"phase 16: b. python -m kanzi_tpu_torch.app -c -l 5 -b auto -j {AUTO_JOBS} under "
+              f"KANZI_TPU_DEVICE_BWT=1 (beside the other parts): {c['blocks']} blocks of "
+              f"{c['block']} B, {SILESIA_SIZE} B -> {c['bytes_out']} B, --device cuda and none "
+              f"equal; compress MB/s (the CLI's clock) cuda {c['mb_s']['cuda']:.2f} none "
+              f"{c['mb_s']['none']:.2f}, -d cuda {c['mb_s']['decompress']:.2f} (equal to S); "
+              f"process walls {c['cuda']['wall_s']:.1f}, {c['none']['wall_s']:.1f}, "
+              f"{c['decompress']['wall_s']:.1f} s; launches cuda {c['cuda']['launches']}, -d "
+              f"{c['decompress']['launches']}, none none; card {card}")
+    print(f"phase 16: inputs made in {r['inputs_s']:.1f} s; launches {r['launches']}")
+
+
 def _family(name: str) -> str:
     """Kernel family of a device event, for the level-1 profile."""
     low = name.lower()
@@ -2727,6 +3339,11 @@ def main() -> int:
                     help="run phases 0-1 and 14 (the device LZ paths beside phase 7) only")
     ap.add_argument("--phase15", action="store_true",
                     help="run phases 0-1 and 15 (the configuration space) only")
+    ap.add_argument("--phase16", nargs="?", const=PHASE16_PARTS, metavar="PARTS",
+                    help="run phases 0-1 and 16 (the sizes users run) only, or only "
+                         "its parts named (of abcde)")
+    ap.add_argument("--phase10", action="store_true",
+                    help="run phases 0 and 10 (the device suffix array) only")
     ap.add_argument("--phase2", metavar="GROUPS",
                     help="run only these comma-separated phase-2 groups (of "
                          f"{', '.join(PHASE2_GROUPS)}), then stop")
@@ -2734,6 +3351,8 @@ def main() -> int:
     groups = PHASE2_GROUPS if args.phase2 is None else tuple(args.phase2.split(","))
     if not set(groups) <= set(PHASE2_GROUPS + PHASE2_PARTS):
         ap.error(f"--phase2: groups are {', '.join(PHASE2_GROUPS + PHASE2_PARTS)}")
+    if args.phase16 is not None and not set(args.phase16) <= set(PHASE16_PARTS):
+        ap.error(f"--phase16: parts are {PHASE16_PARTS}")
 
     import torch
     if not torch.cuda.is_available():
@@ -2750,6 +3369,18 @@ def main() -> int:
     if native.get_lib() is None:
         raise RuntimeError("the port's native host library did not load (g++ missing?)")
     print("phase 0: the port's native host library loaded")
+    t = time.perf_counter()
+    data = mixed_corpus(64 << 20, seed=12).tobytes()
+    print(f"phase 0: corpus of {len(data)} B made in {time.perf_counter() - t:.1f} s")
+    if args.phase10:
+        t = time.perf_counter()
+        print_phase10(phase10_sa(data, dev), t)
+        return 0
+    plain = None
+    if not (args.mesh or args.phase10 or args.phase14 or args.phase15 or args.phase16 is not None
+            or args.profile) and "ans1" in groups:
+        plain = start_plain_ans1(dev, data)
+        print("phase 1: ans1_scan's plain version started beside the build")
 
     cuda_build.load()
     srcs = sorted(f for f in os.listdir(cuda_build.SRC_DIR) if f.endswith((".cu", ".cuh")))
@@ -2762,9 +3393,6 @@ def main() -> int:
         print(f"phase 1: {name}: {n} 16-byte global loads before its first shared atomic "
               f"(cuobjdump -sass)")
 
-    t = time.perf_counter()
-    data = mixed_corpus(64 << 20, seed=12).tobytes()
-    print(f"phase 2: corpus of {len(data)} B made in {time.perf_counter() - t:.1f} s")
     if args.mesh:
         t = time.perf_counter()
         print_phase12(phase12_mesh(data), {})
@@ -2780,16 +3408,26 @@ def main() -> int:
         print_phase15(phase15_configs(dev))
         print(f"phase 15: done in {time.perf_counter() - t:.1f} s")
         return 0
+    if args.phase16 is not None:
+        t = time.perf_counter()
+        print_phase16(phase16_scale(dev, args.phase16))
+        print(f"phase 16: done in {time.perf_counter() - t:.1f} s")
+        return 0
     if args.profile:
         print(card_line())
         print(json.dumps({"level1_profile": profile_level1(data[:32 << 20], dev)}))
         return 0
+    if plain is not None:
+        t = time.perf_counter()
+        join_plain_ans1(plain)
+        print(f"phase 2: ans1_scan's plain version ran {plain['ms'] / 1e3:.1f} s beside the "
+              f"build, then {time.perf_counter() - t:.1f} s more")
     t = time.perf_counter()
     if "floor" in groups:
         print("phase 2: the floor of the card-alone times, an empty kernel queued as the "
               "kernels are: " + ", ".join(f"{v:.4f} ms at {k} threads"
                                           for k, v in card_floor(dev).items()))
-    kern = phase2_kernels(dev, data, groups)
+    kern = phase2_kernels(dev, data, groups, plain)
     for name, r in kern.items():
         lib = "" if r["library_ms"] is None else f", library call {r['library_ms']:.4f} ms"
         once = " (one run)" if name == "ans1_scan" else ""
@@ -2899,22 +3537,7 @@ def main() -> int:
           f"{r['launches']}")
     check(all(v > 0 for v in launches.values()), f"launches {launches}")
     t = time.perf_counter()
-    r = phase10_sa(data, dev)
-    print(f"phase 10: the device suffix array equals SA-IS on {', '.join(r['inputs'])}")
-    for name in ("corpus 4 MiB", "zeros 4 MiB"):
-        a = r[name]
-        print(f"phase 10: {name} (npad {a['npad']}): {a['rounds']} rounds after the seed; "
-              f"card {a['card_ms']:.4f} ms the whole call, {a['doubling_ms']:.4f} ms the "
-              f"doubling on the card, {a['ms_per_sort']:.4f} ms a sort (seed and rounds); "
-              f"host SA-IS {a['sais_ms']:.4f} ms; the BWT from an SA on the host "
-              f"(_assemble_forward) {a['assemble_ms']:.4f} ms; the native BWT forward "
-              f"(SA-IS and assembly in C++, one thread) {a['native_bwt_ms']:.4f} ms")
-    a = r["eight_blocks"]
-    print(f"phase 10: eight 4 MiB blocks of the corpus: one after another "
-          f"{a['serial_ms']:.4f} ms, in eight threads "
-          f"{', then '.join(f'{v:.4f}' for v in a['threads_ms'])} ms (peak "
-          f"{a['threads_peak_bytes']} B allocated on the card); host SA-IS in eight threads "
-          f"{a['sais_threads_ms']:.4f} ms; {time.perf_counter() - t:.1f} s")
+    print_phase10(phase10_sa(data, dev), t)
     t = time.perf_counter()
     r = phase11_cli(data)
 
@@ -2952,8 +3575,12 @@ def main() -> int:
     r15 = phase15_configs(dev)
     print_phase15(r15)
     print(f"phase 15: done in {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    r16 = phase16_scale(dev)
+    print_phase16(r16)
+    print(f"phase 16: done in {time.perf_counter() - t:.1f} s")
     for step in [*r12["launches"].values(), *r13["launches"].values(),
-                 *r14["launches"].values(), r15["launches"]]:
+                 *r14["launches"].values(), r15["launches"], r16["launches"]]:
         for k, v in step.items():
             if k in launches:
                 launches[k] += v

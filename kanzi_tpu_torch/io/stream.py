@@ -267,8 +267,10 @@ def decode_block(payload: np.ndarray, nbits: int, transform_type: int,
             raise IOError_("block header checksum mismatch", Error.ERR_CRC_CHECK)
     if pre_len == 0:
         return np.zeros(0, dtype=np.uint8)
-    max_transform_length = min(max(block_size + block_size // 2, 2048),
-                               MAX_BITSTREAM_BLOCK_SIZE)
+    # not capped at MAX_BITSTREAM_BLOCK_SIZE: a transform may add its
+    # header to a block of the largest size (the BWT's 33 B at 2^30), and
+    # kanzi_tpu, which caps it, refuses the 1 GiB blocks its writer wrote so
+    max_transform_length = max(block_size + block_size // 2, 2048)
     if pre_len > max_transform_length:
         raise IOError_(f"invalid compressed block length {pre_len}", Error.ERR_READ_FILE)
 

@@ -320,8 +320,9 @@ def make_sa_step(mesh: Mesh, npad: int):
     uint8 (n, npad), each a block's BWT input zero-padded to ``npad``, and
     their lengths (n,)) -> the SAs int32 (N, npad) of all N rows, on every
     rank.  Each row runs ops/bwt_device.py's prefix doubling on the rank's
-    device; the pads sort first, so a row's real positions are its last n
-    entries.  Any correct SA gives the identical BWT."""
+    device over its n real bytes, each admitted by the device's byte
+    budget as one call is; a row's SA is its first n entries, the rest -1.
+    Any correct SA gives the identical BWT."""
     def step(glob, ns):
         def run():
             g = _to(mesh, glob, np.uint8)
@@ -329,8 +330,11 @@ def make_sa_step(mesh: Mesh, npad: int):
                 raise ValueError(f"rows of {g.shape[1]} bytes, expected {npad}")
             sas, rounds = [], []
             for k, n in enumerate(torch.as_tensor(ns).tolist()):
-                sa, r = bwt_device.prefix_doubling(g[k], int(n))
-                sas.append(sa.to(torch.int32))
+                with bwt_device.admitted(g.device, int(n)):
+                    sa, r = bwt_device.prefix_doubling(g[k], int(n))
+                row = torch.full((npad,), -1, dtype=torch.int32, device=g.device)
+                row[:int(n)] = sa
+                sas.append(row)
                 rounds.append(r)
             return torch.stack(sas), rounds
 
@@ -626,7 +630,7 @@ def _l5_compress(mesh: Mesh, data: np.ndarray, block_size: int, checksum: int,
             for k, bid in enumerate(grp):
                 n = pre[bid].size
                 sa_map[(n, xxhash64(pre[bid].tobytes(), 0))] = \
-                    sa_rows[k][npad - n:].astype(np.int64)
+                    sa_rows[k][:n].astype(np.int64)
     t2 = time.perf_counter()
     mesh.clock("l5 pass B", t2 - t1)
 

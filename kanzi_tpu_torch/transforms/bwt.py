@@ -29,6 +29,7 @@ from ..core.types import TransformSkip
 from ..utils import native_transforms as nt
 
 MAX_BLOCK_SIZE = 1024 * 1024 * 1024
+ASSEMBLE_SLICE = 1 << 24        # positions a slice of _assemble_forward
 BLOCK_SIZE_THRESHOLD1 = 256
 BWT_MAX_HEADER_SIZE = 1 + 8 * 4
 
@@ -121,7 +122,7 @@ class BWT:
         if (device is not None and n >= 65536
                 and os.environ.get("KANZI_TPU_DEVICE_BWT", "0") == "1"):
             from ..ops.bwt_device import suffix_array_device
-            sa = suffix_array_device(src, device=device).astype(np.int64)
+            sa = suffix_array_device(src, device=device)
             return self._assemble_forward(src, sa, chunks)
         # leftover thread budget from the encode task (1 when blocks
         # already saturate the cores, more when a lone block has the
@@ -138,19 +139,36 @@ class BWT:
 
     def _assemble_forward(self, src: np.ndarray, sa: np.ndarray,
                           chunks: int) -> np.ndarray:
+        """The BWT of ``src`` from its suffix array, in slices of
+        ASSEMBLE_SLICE positions: beside ``sa`` (as int32) it holds the
+        output and one slice's temporaries, so a 1 GiB block takes no
+        int64 array of its length."""
         n = src.size
         st = n // chunks
         step = st + 1 if st * chunks != n else st
-        ranks = np.empty(n, dtype=np.int64)
-        ranks[sa] = np.arange(n)
+        sa = np.asarray(sa, dtype=np.int32)         # n <= MAX_BLOCK_SIZE < 2^31
+        # the rank of each chunk's first position: where sa holds it
+        starts = np.zeros(chunks, dtype=np.int64)
+        for a in range(0, n, ASSEMBLE_SLICE):
+            part = sa[a:a + ASSEMBLE_SLICE]
+            for t in np.flatnonzero(part % step == 0):
+                starts[part[t] // step] = a + t
         for k in range(chunks):
-            self.primary_indexes[k] = int(ranks[k * step]) + 1
-        p_idx = int(ranks[0])
+            self.primary_indexes[k] = int(starts[k]) + 1
+        p_idx = int(starts[0])
+        # the last column, src[sa - 1], shifted one place right up to the
+        # primary index (sa == 0 there; its byte, src[n - 1], comes first)
         dst = np.empty(n, dtype=np.uint8)
         dst[0] = src[n - 1]
-        l_col = src[sa - 1]  # valid except at rank p_idx (sa==0)
-        dst[1:p_idx + 1] = l_col[:p_idx]
-        dst[p_idx + 1:] = l_col[p_idx + 1:]
+        for a in range(0, n, ASSEMBLE_SLICE):
+            b = min(a + ASSEMBLE_SLICE, n)
+            l_col = src[sa[a:b] - 1]
+            m = min(b, p_idx)
+            if m > a:
+                dst[a + 1:m + 1] = l_col[:m - a]
+            lo = max(a, p_idx + 1)
+            if b > lo:
+                dst[lo:b] = l_col[lo - a:]
         return dst
 
     def inverse(self, src: np.ndarray, count: int | None = None) -> np.ndarray:

@@ -18,6 +18,26 @@ from ..utils import native_transforms as nt
 
 MAX_DISTANCE1 = (1 << 16) - 2
 MAX_DISTANCE2 = (1 << 24) - 2
+# the largest output an inverse can owe: a block of kanzi's largest size
+# (io/stream.py MAX_BITSTREAM_BLOCK_SIZE)
+MAX_OUTPUT = 1 << 30
+
+
+def _inverse_growing(native, src: np.ndarray):
+    """``native(src, cap)`` where the output's size is not known: first at
+    four times the input (+64 KiB), then at four times that, the last try at
+    MAX_OUTPUT itself; None if no capacity held it.  kanzi_tpu stops below
+    2^30 instead, so an input of 256 MiB or more (a 1 GiB block's LZX
+    sections) never reaches the native decoder there."""
+    cap = min(src.size * 4 + 65536, MAX_OUTPUT)
+    while True:
+        try:
+            res = native(src, cap)
+        except ValueError:
+            res = None
+        if res is not None or cap >= MAX_OUTPUT:
+            return res
+        cap = min(cap * 4, MAX_OUTPUT)
 
 
 class LZXCodec:
@@ -91,16 +111,8 @@ class LZXCodec:
                 return res
             return _lzx_inverse_py(src, count)
         # unknown output size (mid-sequence): grow the buffer on demand
-        cap = src.size * 4 + 65536
-        while cap <= (1 << 30):
-            try:
-                res = nt.lzx_inverse_native(src, cap)
-            except ValueError:
-                res = None
-            if res is not None:
-                return res
-            cap *= 4
-        return _lzx_inverse_py(src, 1 << 30)
+        res = _inverse_growing(nt.lzx_inverse_native, src)
+        return res if res is not None else _lzx_inverse_py(src, MAX_OUTPUT)
 
     def dispose(self) -> None:
         pass
@@ -139,16 +151,8 @@ class LZPCodec:
             if res is not None:
                 return res
             return _lzp_inverse_py(src)
-        cap = src.size * 4 + 65536
-        while cap <= (1 << 30):
-            try:
-                res = nt.lzp_inverse_native(src, cap)
-            except ValueError:
-                res = None
-            if res is not None:
-                return res
-            cap *= 4
-        return _lzp_inverse_py(src)
+        res = _inverse_growing(nt.lzp_inverse_native, src)
+        return res if res is not None else _lzp_inverse_py(src)
 
 
 class LZCodec:
