@@ -45,7 +45,7 @@ import numpy as np
 from ..core import magic
 from ..core.bits import BitReader, BitWriter, append_packed
 from ..core.errors import Error, IOError_
-from ..core.events import Event, EventType, HeaderInfo, notify
+from ..core.events import Event, EventType, HeaderInfo, block_context, notify
 from ..core.globals import (DataType, first_order_entropy_1024, histogram_order0, log2)
 from ..core.types import TransformSkip
 from ..entropy import factory as entropy_factory
@@ -108,11 +108,25 @@ def _block_header_checksum(mode: int, header_skip_flags: int,
 # block encode / decode (pure functions run on worker threads)
 # ---------------------------------------------------------------------------
 
+def _emit(listeners, etype: EventType, block_id: int, size: int, hash_value) -> None:
+    """notify, with the Event built only when there are listeners."""
+    if listeners:
+        notify(listeners, Event(etype, block_id, size, hash_value))
+
+
 def encode_block(block: np.ndarray, transform_type: int, entropy_type: int,
                  ctx: dict, listeners=(), block_id: int = 0, *,
                  device) -> tuple[np.ndarray, int]:
     """Encode one block on ``device`` (see the module docstring); returns
-    (packed payload bytes, bit count)."""
+    (packed payload bytes, bit count).  The block's listeners also get the
+    device glue's spans (core/events.py ``span``)."""
+    with block_context(listeners, block_id):
+        return _encode_block(block, transform_type, entropy_type, ctx, listeners,
+                             block_id, device)
+
+
+def _encode_block(block, transform_type, entropy_type, ctx, listeners, block_id,
+                  device) -> tuple[np.ndarray, int]:
     block_length = block.size
     checksum = 0
     chk = ctx.get("checksum", 0)
@@ -120,8 +134,8 @@ def encode_block(block: np.ndarray, transform_type: int, entropy_type: int,
         checksum = xxhash32(block.tobytes(), BITSTREAM_TYPE)
     elif chk == 64:
         checksum = xxhash64(block.tobytes(), BITSTREAM_TYPE)
-    notify(listeners, Event(EventType.BEFORE_TRANSFORM, block_id, block_length,
-                            checksum if chk else None))
+    _emit(listeners, EventType.BEFORE_TRANSFORM, block_id, block_length,
+          checksum if chk else None)
     mode = 0
     if block_length <= SMALL_BLOCK_SIZE:
         transform_type = transform_factory.NONE_TYPE
@@ -162,12 +176,12 @@ def encode_block(block: np.ndarray, transform_type: int, entropy_type: int,
     if data_size > 4:
         raise IOError_("invalid block data length", Error.ERR_WRITE_FILE)
     mode |= ((data_size - 1) & 0x03) << 5
-    notify(listeners, Event(EventType.AFTER_TRANSFORM, block_id, post_len,
-                            checksum if chk else None))
+    _emit(listeners, EventType.AFTER_TRANSFORM, block_id, post_len,
+          checksum if chk else None)
 
     # entropy encode into its own writer to learn the payload bit count
-    notify(listeners, Event(EventType.BEFORE_ENTROPY, block_id, post_len,
-                            checksum if chk else None))
+    _emit(listeners, EventType.BEFORE_ENTROPY, block_id, post_len,
+          checksum if chk else None)
     ebw = BitWriter()
     ee = entropy_factory.new_encoder(ebw, ctx, entropy_type, device=device)
     ee.encode(buf)
@@ -215,13 +229,13 @@ def encode_block(block: np.ndarray, transform_type: int, entropy_type: int,
             cbw = BitWriter()
             cbw.write_bytes(buf)
             arr, nbits = assemble(copy_mode, nb_functions > 4, cbw)
-            notify(listeners, Event(EventType.AFTER_ENTROPY, block_id,
-                                    (nbits + 7) >> 3, checksum if chk else None))
+            _emit(listeners, EventType.AFTER_ENTROPY, block_id,
+                  (nbits + 7) >> 3, checksum if chk else None)
             return arr, nbits
 
     arr, nbits = assemble(mode, use_skip_byte, ebw)
-    notify(listeners, Event(EventType.AFTER_ENTROPY, block_id,
-                            (nbits + 7) >> 3, checksum if chk else None))
+    _emit(listeners, EventType.AFTER_ENTROPY, block_id,
+          (nbits + 7) >> 3, checksum if chk else None)
     return arr, nbits
 
 
@@ -229,7 +243,15 @@ def decode_block(payload: np.ndarray, nbits: int, transform_type: int,
                  entropy_type: int, block_size: int, ctx: dict,
                  listeners=(), block_id: int = 0, *, device) -> np.ndarray:
     """Decode one block payload (byte array + bit length) to raw data on
-    ``device`` (see the module docstring)."""
+    ``device`` (see the module docstring), reporting to the block's
+    listeners as encode_block does."""
+    with block_context(listeners, block_id):
+        return _decode_block(payload, nbits, transform_type, entropy_type, block_size,
+                             ctx, listeners, block_id, device)
+
+
+def _decode_block(payload, nbits, transform_type, entropy_type, block_size, ctx,
+                  listeners, block_id, device) -> np.ndarray:
     br = BitReader(payload, nbits=nbits)
     bs_version = int(ctx.get("bsVersion", BITSTREAM_FORMAT_VERSION))
     mode = br.read_bits(8)
@@ -282,8 +304,8 @@ def decode_block(payload: np.ndarray, nbits: int, transform_type: int,
 
     ctx = dict(ctx)
     ctx["size"] = pre_len
-    notify(listeners, Event(EventType.BEFORE_ENTROPY, block_id, (nbits + 7) >> 3,
-                            checksum1 if chk else None))
+    _emit(listeners, EventType.BEFORE_ENTROPY, block_id, (nbits + 7) >> 3,
+          checksum1 if chk else None)
     if copy_block and not transformed_copy:
         transform_type = transform_factory.NONE_TYPE
         entropy_type = entropy_factory.NONE_TYPE
@@ -293,16 +315,16 @@ def decode_block(payload: np.ndarray, nbits: int, transform_type: int,
         ed = entropy_factory.new_decoder(br, ctx, entropy_type, device=device)
         buf = ed.decode(pre_len)
         ed.dispose()
-    notify(listeners, Event(EventType.AFTER_ENTROPY, block_id, pre_len,
-                            checksum1 if chk else None))
-    notify(listeners, Event(EventType.BEFORE_TRANSFORM, block_id, pre_len,
-                            checksum1 if chk else None))
+    _emit(listeners, EventType.AFTER_ENTROPY, block_id, pre_len,
+          checksum1 if chk else None)
+    _emit(listeners, EventType.BEFORE_TRANSFORM, block_id, pre_len,
+          checksum1 if chk else None)
 
     seq = transform_factory.new_function(ctx, transform_type)
     seq.skip_flags = skip_flags
     data = seq.inverse(buf)
-    notify(listeners, Event(EventType.AFTER_TRANSFORM, block_id, data.size,
-                            checksum1 if chk else None))
+    _emit(listeners, EventType.AFTER_TRANSFORM, block_id, data.size,
+          checksum1 if chk else None)
 
     if chk == 32 and xxhash32(data.tobytes(), BITSTREAM_TYPE) != checksum1:
         raise IOError_("corrupted bitstream: block checksum mismatch", Error.ERR_CRC_CHECK)
@@ -717,12 +739,13 @@ class CompressedInputStream:
         else:
             self.nb_input_blocks = br.read_bits(6)
             br.read_bits(4)  # reserved
-        notify(self.listeners, Event(
-            EventType.AFTER_HEADER_DECODING, 0, 0,
-            header=HeaderInfo(self.bs_version, self.checksum, self.block_size,
-                              entropy_factory.get_name(self.entropy_type),
-                              transform_factory.get_name(self.transform_type),
-                              self.output_size or -1)))
+        if self.listeners:
+            notify(self.listeners, Event(
+                EventType.AFTER_HEADER_DECODING, 0, 0,
+                header=HeaderInfo(self.bs_version, self.checksum, self.block_size,
+                                  entropy_factory.get_name(self.entropy_type),
+                                  transform_factory.get_name(self.transform_type),
+                                  self.output_size or -1)))
 
     def _frame_next(self):
         """Read one block's framing + payload from the bit source; returns

@@ -44,7 +44,7 @@ import torch
 
 from ..utils.device import check_device
 from . import ans_cuda
-from .launch import i16, launch, register, require, stream, to_device
+from .launch import i16, launch, register, require, stream, to_device, to_host
 
 ANS_TOP = 1 << 15
 LOG_RANGE1 = 11                  # order-1 logRange (ANSRangeEncoder.java:125)
@@ -248,7 +248,7 @@ def ans1_encode_chunks_pallas(chunks: np.ndarray, freq: np.ndarray,
     pay, cnt, st = ans1_encode_chunks_tensors(to_device(chunks, dev, np.uint8),
                                               to_device(freq, dev, np.int32),
                                               to_device(cum, dev, np.int32))
-    return pay.cpu().numpy().view(np.uint16), cnt.cpu().numpy(), st.cpu().numpy()
+    return to_host(pay).view(np.uint16), to_host(cnt), to_host(st)
 
 
 def ans1_encode_chunks(chunks: np.ndarray, freq: np.ndarray, cum: np.ndarray,

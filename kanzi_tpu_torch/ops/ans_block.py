@@ -37,7 +37,8 @@ from ..entropy import utils as eu
 
 from ..utils.native_coders import ans_encode_native
 from . import ans1_cuda, ans_cuda
-from .glue import GLUE_LOCK, read_windowed
+from .glue import glue_lock, read_windowed
+from .launch import to_device, to_host
 
 CHUNK = ans_cuda.CHUNK
 LOG_RANGE = ans_cuda.LOG_RANGE
@@ -72,7 +73,7 @@ def ans0_encode(block: np.ndarray, bw: BitWriter, device: torch.device) -> int:
     The block's wire is packed into one segment under the lock, so that the
     caller's writer does not pack its thousands of small header segments
     outside it."""
-    with GLUE_LOCK:
+    with glue_lock():
         wire = BitWriter()
         count = _encode(block, wire, device)
         arr, nbits = wire.getvalue_packed()
@@ -88,12 +89,11 @@ def _device_rows(chunks: np.ndarray, device: torch.device):
     """The order-0 stage of full chunks on ``device``, fetched to the host:
     (freq, payload (n, w) u16, n_emit, states), only the populated payload
     prefix (a power-of-two width w) copied back."""
-    freq_t, pay_t, ne_t, st_t = ans_cuda.encode_chunks_tensors(
-        ans_cuda.to_device(chunks, device))
-    n_emit = ne_t.cpu().numpy()
+    freq_t, pay_t, ne_t, st_t = ans_cuda.encode_chunks_tensors(to_device(chunks, device))
+    n_emit = to_host(ne_t)
     w = min(1 << max(int(n_emit.max(initial=0)) - 1, 1).bit_length(), chunks.shape[1])
-    return (freq_t.cpu().numpy(), pay_t[:, :w].contiguous().cpu().numpy().view(np.uint16),
-            n_emit, st_t.cpu().numpy())
+    return (to_host(freq_t), to_host(pay_t[:, :w].contiguous()).view(np.uint16),
+            n_emit, to_host(st_t))
 
 
 def encode_ans0_wire(block: np.ndarray, bw: BitWriter, rows, chunk: int = CHUNK) -> int:
@@ -138,7 +138,7 @@ def order1_tables(chunks: np.ndarray):
 def ans1_encode(block: np.ndarray, bw: BitWriter, device: torch.device) -> int:
     """ANSRangeEncoder(order=1).encode with the full 4 MiB chunks on
     ``device``; one packed wire segment per block, as ans0_encode."""
-    with GLUE_LOCK:
+    with glue_lock():
         wire = BitWriter()
         count = _encode1(block, wire, device)
         arr, nbits = wire.getvalue_packed()
@@ -158,12 +158,10 @@ def _encode1(block: np.ndarray, bw: BitWriter, device: torch.device) -> int:
         chunks = block[:nfull * CHUNK1].reshape(nfull, CHUNK1)
         freq, cum = order1_tables(chunks)
         pay_t, cnt_t, st_t = ans1_cuda.ans1_encode_chunks_tensors(
-            ans_cuda.to_device(chunks, device),
-            ans_cuda.to_device(freq, device, np.int32),
-            ans_cuda.to_device(cum, device, np.int32))
-        words = ans1_cuda.stitch(pay_t.cpu().numpy().view(np.uint16),
-                                 cnt_t.cpu().numpy())
-        states = st_t.cpu().numpy()
+            to_device(chunks, device), to_device(freq, device, np.int32),
+            to_device(cum, device, np.int32))
+        words = ans1_cuda.stitch(to_host(pay_t).view(np.uint16), to_host(cnt_t))
+        states = to_host(st_t)
         for i in range(nfull):
             bw.write_bits(LOG_RANGE1 - 8, 3)
             for k in range(256):
@@ -191,7 +189,7 @@ def encode1_tail(seg: np.ndarray, bw: BitWriter) -> None:
 
 def ans0_decode(count: int, br: BitReader, device: torch.device) -> np.ndarray:
     """ANSRangeDecoder(order=0).decode with the full chunks on ``device``."""
-    with GLUE_LOCK:
+    with glue_lock():
         return _decode(count, br, device)
 
 

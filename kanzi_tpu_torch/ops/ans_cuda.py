@@ -37,7 +37,7 @@ from ..utils.device import check_device
 # read or reset the counts through this module
 from .launch import (count as _count, i16 as _i16, launch as _launch,  # noqa: F401
                      launches, register, require as _require, reset_launches,
-                     stream as _stream, to_device)
+                     stream as _stream, to_device, to_host)
 
 ANS_TOP = 1 << 15
 LOG_RANGE = 12
@@ -350,8 +350,7 @@ def ans0_encode_chunks(chunks: np.ndarray, freq: np.ndarray, cum: np.ndarray,
     c = to_device(cum, dev, np.int32)
     words, flags, states = encode_scan(x, pack_tables(f, c))
     payload, n_emit = compact(words, flags)
-    return (payload.cpu().numpy().view(np.uint16), n_emit.cpu().numpy(),
-            states.cpu().numpy())
+    return to_host(payload).view(np.uint16), to_host(n_emit), to_host(states)
 
 
 def ans0_encode_device(chunks: np.ndarray, device):
@@ -359,8 +358,8 @@ def ans0_encode_device(chunks: np.ndarray, device):
     (N, 256), payload u16 (N, C), n_emit i32 (N,), states i32 (N, 4))."""
     x = to_device(chunks, check_device(device), np.uint8)
     freq, payload, n_emit, states = encode_chunks_tensors(x)
-    return (freq.cpu().numpy(), payload.cpu().numpy().view(np.uint16),
-            n_emit.cpu().numpy(), states.cpu().numpy())
+    return (to_host(freq), to_host(payload).view(np.uint16), to_host(n_emit),
+            to_host(states))
 
 
 def ans0_decode_chunks(payload: np.ndarray, states: np.ndarray,
@@ -378,4 +377,4 @@ def ans0_decode_chunks(payload: np.ndarray, states: np.ndarray,
                            to_device(states, dev, np.int64),
                            to_device(freq, dev, np.int32),
                            to_device(cum, dev, np.int32))
-    return out.cpu().numpy(), consumed.cpu().numpy()
+    return to_host(out), to_host(consumed)

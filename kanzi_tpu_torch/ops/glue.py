@@ -4,9 +4,11 @@ from a window of the reader."""
 
 from __future__ import annotations
 
+import contextlib
 import threading
 
 from ..core.bits import BitReader
+from ..core.events import span
 
 HEADER_WINDOW = 1024   # an ANS0 chunk header is < 530 bytes, a Huffman one < 300
 
@@ -16,6 +18,20 @@ HEADER_WINDOW = 1024   # an ANS0 chunk header is < 530 bytes, a Huffman one < 30
 # the other threads' native work (transforms, the host's C++ coders) goes on
 # beside it.
 GLUE_LOCK = threading.Lock()
+
+
+@contextlib.contextmanager
+def glue_lock():
+    """Hold GLUE_LOCK for the block; its listeners get the wait for it as a
+    GLUE_WAIT span and the hold as a GLUE_HOLD span, closed before the
+    release."""
+    with span("GLUE_WAIT"):
+        GLUE_LOCK.acquire()
+    try:
+        with span("GLUE_HOLD"):
+            yield
+    finally:
+        GLUE_LOCK.release()
 
 
 def read_windowed(br: BitReader, parse, *args):

@@ -33,8 +33,8 @@ from ..entropy import utils as eu
 from ..entropy.expgolomb import ExpGolombEncoder
 
 from . import huffman_cuda
-from .glue import GLUE_LOCK, read_windowed
-from .launch import to_device
+from .glue import glue_lock, read_windowed
+from .launch import to_device, to_host
 
 CHUNK = huffman_cuda.CHUNK
 MAX_SYMBOL_SIZE = huffman_cuda.MAX_SYMBOL_SIZE
@@ -88,7 +88,7 @@ def huffman_encode_full(block: np.ndarray, bw: BitWriter, device: torch.device) 
     nfull = block.size // CHUNK
     if nfull < 4:
         return 0
-    with GLUE_LOCK:
+    with glue_lock():
         wire = BitWriter()
         _encode_full(block[:nfull * CHUNK].reshape(nfull, CHUNK), wire, device)
         arr, nbits = wire.getvalue_packed()
@@ -98,19 +98,19 @@ def huffman_encode_full(block: np.ndarray, bw: BitWriter, device: torch.device) 
 
 def _encode_full(chunks: np.ndarray, bw: BitWriter, device: torch.device) -> None:
     x = to_device(chunks, device)
-    hists = huffman_cuda.hist(x).cpu().numpy().astype(np.int64)
+    hists = to_host(huffman_cuda.hist(x)).astype(np.int64)
     sizes, codes, nsym = hhuf.build_tables_batch(hists)
     # len << 12 | code per symbol; as int32 words, symbol 2k in the low half
     tbl = ((sizes << 12) | codes).astype(np.uint16).view(np.int32)
     words_t, n_words_t, acc_t, nbits_t = huffman_cuda.encode_streams(
         x, to_device(tbl, device))
-    n_words = n_words_t.cpu().numpy()
-    acc = acc_t.cpu().numpy()
-    nbits = nbits_t.cpu().numpy()
+    n_words = to_host(n_words_t)
+    acc = to_host(acc_t)
+    nbits = to_host(nbits_t)
     # fetch only the populated prefix of the words (power-of-two width)
     mw = int(n_words.max(initial=1))
     mw = min(1 << max(mw - 1, 1).bit_length(), huffman_cuda.STREAM)
-    words = words_t[:, :mw].contiguous().cpu().numpy().view(np.uint16)
+    words = to_host(words_t[:, :mw].contiguous()).view(np.uint16)
     eg = ExpGolombEncoder(bw, True)
     for i in range(len(chunks)):
         alphabet = np.flatnonzero(hists[i])
@@ -147,7 +147,7 @@ def _read_lengths(br: BitReader, dec: hhuf.HuffmanDecoder) -> int:
 def huffman_decode(count: int, br: BitReader, device: torch.device) -> np.ndarray:
     """HuffmanDecoder.decode (bit-stream version 6 and later, 16 KiB chunks)
     with every full chunk of two or more symbols decoded on ``device``."""
-    with GLUE_LOCK:
+    with glue_lock():
         return _decode(count, br, device)
 
 

@@ -31,7 +31,7 @@ import numpy as np
 import torch
 
 from ..utils.device import check_device
-from .launch import i16, launch, register, require, stream, to_device
+from .launch import i16, launch, register, require, stream, to_device, to_host
 
 CHUNK = 16384
 STREAM = CHUNK // 4                 # symbols per quarter-stream
@@ -206,8 +206,8 @@ def huffman_encode_streams(chunks: np.ndarray, tbl: np.ndarray, device):
     dev = check_device(device)
     words, n_words, acc, nbits = encode_streams(to_device(chunks, dev, np.uint8),
                                                 to_device(tbl, dev, np.int32))
-    return (words.cpu().numpy().view(np.uint16), n_words.cpu().numpy(),
-            acc.cpu().numpy(), nbits.cpu().numpy())
+    return (to_host(words).view(np.uint16), to_host(n_words), to_host(acc),
+            to_host(nbits))
 
 
 def huffman_decode_chunks(pay: np.ndarray, bnd: np.ndarray, adj: np.ndarray,
@@ -223,4 +223,4 @@ def huffman_decode_chunks(pay: np.ndarray, bnd: np.ndarray, adj: np.ndarray,
     syms, used = decode_chunks(to_device(p, dev), to_device(bnd, dev, np.int32),
                                to_device(adj, dev, np.int32),
                                to_device(perm, dev, np.int32))
-    return syms.cpu().numpy(), used.cpu().numpy()
+    return to_host(syms), to_host(used)

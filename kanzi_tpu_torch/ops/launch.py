@@ -1,6 +1,7 @@
 """What every kernel wrapper of the port shares: one launch count per
-kernel, the launch through the built library, and the checks on what a
-kernel takes.
+kernel, the launch through the built library, the checks on what a
+kernel takes, and the copies to and from the card (``to_device``,
+``to_host``), each a span to the block's listeners (core/events.py).
 
 ``launches`` maps each kernel's name to the number of times its wrapper
 launched it; a wrapper adds one where it launches and nowhere else, so a run
@@ -15,6 +16,7 @@ import threading
 import numpy as np
 import torch
 
+from ..core.events import span, traced
 from ..utils import cuda_build
 
 launches: dict[str, int] = {}
@@ -72,7 +74,21 @@ def i16(v: torch.Tensor) -> torch.Tensor:
 
 
 def to_device(a: np.ndarray, device, dtype=None) -> torch.Tensor:
+    """``a`` on ``device``; the copy is a COPY_IN span of ``a``'s bytes."""
     a = np.ascontiguousarray(a, dtype=dtype)
     if not a.flags.writeable:
         a = a.copy()
-    return torch.from_numpy(a).to(device)
+    with span("COPY_IN", a.nbytes):
+        return torch.from_numpy(a).to(device)
+
+
+def to_host(t: torch.Tensor) -> np.ndarray:
+    """``t.cpu().numpy()``.  Traced (core/events.py), the host first waits
+    for ``t``'s stream inside a CARD_WAIT span, so that the COPY_OUT span of
+    the fetch's bytes holds the copy alone."""
+    if traced():
+        with span("CARD_WAIT"):
+            if t.is_cuda:
+                torch.cuda.current_stream(t.device).synchronize()
+    with span("COPY_OUT", t.numel() * t.element_size()):
+        return t.cpu().numpy()
