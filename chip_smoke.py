@@ -269,6 +269,9 @@ REPLACES = {
               ["kanzi_tpu/ops/ksort_pallas.py:123"]),
 }
 ANS0_KERNELS = ("ans0_hist_norm", "ans0_encode_scan", "ans0_compact", "ans0_decode")
+# the ANS0 decode's compiled header parse (ops/ans_block.py parse_ans0_wire):
+# one count a block that the decode gate sends to the card
+ANS0_GLUE = ("ans0_wire_native",)
 HUFFMAN_KERNELS = ("huffman_hist", "huffman_encode", "huffman_decode")
 LZ_KERNELS = ("lz_words",)
 ANS1_KERNELS = ("ans1_scan", "ans1_compact")
@@ -2313,7 +2316,7 @@ def print_phase14(r: dict, prior: dict) -> None:
 # entropy stages at the gates' block-size and data edges, the sweep harness
 # both ways a user reaches it, and multihost's worker
 FAMILY = {"ANS0": ANS0_KERNELS, "HUFFMAN": HUFFMAN_KERNELS, "ANS1": ANS1_KERNELS}
-GOLDEN_DEVICE = {2: HUFFMAN_KERNELS, 3: HUFFMAN_KERNELS, 5: ANS0_KERNELS}
+GOLDEN_DEVICE = {2: HUFFMAN_KERNELS, 3: HUFFMAN_KERNELS, 5: ANS0_KERNELS + ANS0_GLUE}
 # block sizes of part c: one chunk short of the ANS0 and Huffman encode
 # minimum, exactly four 16 KiB chunks, 64 chunks, 257 chunks; for ANS1 also
 # a 4 MiB chunk and a tail, and two chunks
@@ -2395,7 +2398,9 @@ def gate_launches(entropy: str, data, block: int, blob: bytes) -> dict:
     as its encode; Huffman: a full chunk, entropy/huffman.py decode), that
     the stream ``blob`` holds entropy-coded (copied_blocks) and that has
     a full chunk of two or more symbols (a one-symbol chunk is a header
-    only); ANS1 decodes on the host.  Every other kernel none."""
+    only); ANS1 decodes on the host; and for ANS0, one count of the decode's
+    compiled header parse (ANS0_GLUE) a block its decode gate sends to the
+    card that the stream holds entropy-coded.  Every other kernel none."""
     out = dict.fromkeys(REPLACES, 0)
     copied = copied_blocks(blob)
     for i, start in enumerate(range(0, len(data), block)):
@@ -2408,6 +2413,8 @@ def gate_launches(entropy: str, data, block: int, blob: bytes) -> dict:
                and multi and not copied[i])
         for k in FAMILY[entropy]:
             out[k] += int(dec if k.endswith("_decode") else enc)
+        if entropy == "ANS0":
+            out[ANS0_GLUE[0]] = out.get(ANS0_GLUE[0], 0) + int(enc and not copied[i])
     return {k: v for k, v in out.items() if v}
 
 
@@ -2507,7 +2514,8 @@ def harness_group(dev) -> dict:
     from kanzi_tpu_torch.utils.corpus import mixed_corpus
 
     data = mixed_corpus(HARNESS_SIZE, seed=12).tobytes()
-    kernels = {1: LZ_KERNELS, 2: HUFFMAN_KERNELS, 3: HUFFMAN_KERNELS, 4: (), 5: ANS0_KERNELS}
+    kernels = {1: LZ_KERNELS, 2: HUFFMAN_KERNELS, 3: HUFFMAN_KERNELS, 4: (),
+               5: ANS0_KERNELS + ANS0_GLUE}
     runs = []
     for level, env, jobs, checksum in HARNESS_RUNS:
         t, e, b = LEVELS[level]
@@ -2612,7 +2620,7 @@ def sweep_group(dev, sweep: dict) -> dict:
     differ = [c.config for c, h in zip(card, host)
               if (c.config, c.digest) != (h.config, h.digest)]
     check(not differ, f"phase 15: run_sweep at {dev} differs from None at {differ}")
-    check(set(got) == set(ANS0_KERNELS + HUFFMAN_KERNELS + ANS1_KERNELS),
+    check(set(got) == set(ANS0_KERNELS + ANS0_GLUE + HUFFMAN_KERNELS + ANS1_KERNELS),
           f"phase 15: run_sweep's launches {got}")
     out["run_sweep"] = {"configs": len(card), "launches": got, "card_s": t1 - t,
                         "host_s": t2 - t1}
@@ -2634,7 +2642,8 @@ def sweep_group(dev, sweep: dict) -> dict:
     check(sizes == [r.out_size for r in host],
           f"phase 15: main's level sizes {sizes}, run_levels at None "
           f"{[r.out_size for r in host]}")
-    check(set(got) == set(ANS0_KERNELS + HUFFMAN_KERNELS), f"phase 15: main's launches {got}")
+    check(set(got) == set(ANS0_KERNELS + ANS0_GLUE + HUFFMAN_KERNELS),
+          f"phase 15: main's launches {got}")
     out["levels"] = {"launches": got, "card_s": t1 - t, "sizes": sizes}
 
     text, counts = finish_cli(sweep)
@@ -2644,7 +2653,7 @@ def sweep_group(dev, sweep: dict) -> dict:
           f"phase 15: the sweep printed {len(configs)} of {n_configs} configurations: "
           f"{text[-2000:]}")
     got = {k: v for k, v in counts["launches"].items() if v}
-    check(set(got) == set(ANS0_KERNELS + HUFFMAN_KERNELS),
+    check(set(got) == set(ANS0_KERNELS + ANS0_GLUE + HUFFMAN_KERNELS),
           f"phase 15: the sweep's launches {got}")
     out["cli_sweep"] = {"configs": len(configs), "launches": got,
                         "wall_s": counts["wall_ms"] / 1e3}
@@ -2793,7 +2802,8 @@ def level_launches(entropy: str, transforms: int):
     each encode kernel a block whose entropy input holds four full chunks,
     and of the decode kernel a block that the decode gate sends to the card
     and the stream holds entropy-coded (every block of these inputs has a
-    chunk of two or more symbols)."""
+    chunk of two or more symbols), and for ANS0 one count of the decode's
+    compiled header parse (ANS0_GLUE) a block the card decodes."""
     def expect(blob: bytes) -> dict:
         out = dict.fromkeys(FAMILY[entropy], 0)
         for size, copied in entropy_inputs(blob, transforms):
@@ -2802,6 +2812,8 @@ def level_launches(entropy: str, transforms: int):
             dec = (enc if entropy == "ANS0" else nfull >= 1) and not copied
             for k in FAMILY[entropy]:
                 out[k] += int(dec if k.endswith("_decode") else enc)
+            if entropy == "ANS0":
+                out[ANS0_GLUE[0]] = out.get(ANS0_GLUE[0], 0) + int(dec)
         return {k: v for k, v in out.items() if v}
     return expect
 
@@ -3120,7 +3132,7 @@ def finish_auto_cli(res: dict, block: int) -> dict:
           f"phase 16: b. the CLI at cuda launched {res['cuda']['launches']}, want {want}")
     check(not res["none"]["launches"], f"phase 16: b. the CLI at none launched "
                                        f"{res['none']['launches']}")
-    check(res["decompress"]["launches"] == {"ans0_decode": blocks},
+    check(res["decompress"]["launches"] == {"ans0_decode": blocks, ANS0_GLUE[0]: blocks},
           f"phase 16: b. the CLI's decode launched {res['decompress']['launches']}")
     return {k: res[k] for k in ("cuda", "none", "decompress", "bytes_out", "blocks")} | {
         "wall_s": time.perf_counter() - res["t0"], "block": block,

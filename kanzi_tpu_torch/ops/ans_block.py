@@ -18,14 +18,21 @@ the reference's:
           lookup, the encode scan and the per-tile compaction of the full
           4 MiB chunks (order 1 decodes on the host, as in the reference)
 
-Two differences: a chunk header with an empty alphabet raises, as the host
-decoder does (entropy/ans.py), where kanzi_tpu's device glue filled zeros;
-an order-1 tail of more than 32 bytes is written by the native host coder,
-which writes the same bytes (tests/test_torch_ans1.py) as the reference's
-numpy loop of one Python step per 4 bytes.
+Three differences: a chunk header with an empty alphabet raises, as the
+host decoder does (entropy/ans.py), where kanzi_tpu's device glue filled
+zeros; an order-1 tail of more than 32 bytes is written by the native host
+coder, which writes the same bytes (tests/test_torch_ans1.py) as the
+reference's numpy loop of one Python step per 4 bytes; on order-0 decode, a
+block's full-chunk headers are parsed and their payloads gathered by the
+port's native parse (hostsrc/ans0_wire.cpp), one call a block with the GIL
+released, and the host's chunks of more than 32 bytes together are decoded
+by the native host coder, where the library is built
+(tests/test_torch_ans0_wire.py holds both to the numpy path).
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -35,15 +42,19 @@ from ..core.errors import BitStreamError
 from ..entropy import ans as hans
 from ..entropy import utils as eu
 
-from ..utils.native_coders import ans_encode_native
+from ..utils.native_coders import ans0_wire_native, ans_decode_native, ans_encode_native
 from . import ans1_cuda, ans_cuda
 from .glue import glue_lock, read_windowed
+from . import launch
 from .launch import to_device, to_host
 
 CHUNK = ans_cuda.CHUNK
 LOG_RANGE = ans_cuda.LOG_RANGE
 CHUNK1 = ans1_cuda.CHUNK1
 LOG_RANGE1 = ans1_cuda.LOG_RANGE1
+
+# blocks whose full-chunk headers the decode parsed natively or in Python
+launch.register(("ans0_wire_native", "ans0_wire_py"))
 
 
 def assemble_ans0_wire(bw: BitWriter, freq: np.ndarray, nsym: np.ndarray,
@@ -204,22 +215,90 @@ def decode_ans0_wire(count: int, br: BitReader, rows, chunk: int = CHUNK,
     """ANSRangeDecoder(order=0, chunk_size=chunk).decode of ``count`` bytes
     from ``br``, the payloads of the full chunks through ``rows``:
     rows(payload uint8 (n, p), lengths (n,) i32, states (n, 4) i64, freq
-    (n, 256) i64, cum (n, 256) i64) -> (out uint8 (n, chunk), consumed
-    (n,)), numpy.  The headers are parsed here in stream order; single-symbol
-    chunks and the tail decode on the host.  A chunk with another log range
-    than the kernels' 12 decodes on the host with every later chunk, or, with
-    ``host_log_ranges`` false (kanzi_tpu's mesh rule), raises.  An empty
-    alphabet, a chunk size at or over the maximum or a consumed count that
-    differs from the payload's raise BitStreamError."""
+    (n, 256) i32, cum (n, 256) i32) -> (out uint8 (n, chunk), consumed
+    (n,)), numpy.  The headers are parsed in stream order (parse_ans0_wire);
+    single-symbol chunks and the tail decode on the host.  A chunk with
+    another log range than the kernels' 12 decodes on the host with every
+    later chunk, or, with ``host_log_ranges`` false (kanzi_tpu's mesh rule),
+    raises.  An empty alphabet, a chunk size at or over the maximum or a
+    consumed count that differs from the payload's raise BitStreamError."""
     if count <= 32:
         return br.read_bytes(count)
     out = np.empty(count, dtype=np.uint8)
     nfull = count // chunk
-    tail = count - nfull * chunk
-    # stage 1 (host, sequential): parse per-chunk headers and slice payloads
-    full = []     # (start, freqs, states, payload bytes)
-    single = []   # (start, symbol)
-    host_resume = None  # (first host chunk index, its already-read log range)
+    wire = parse_ans0_wire(br, nfull, host_log_ranges)
+    if len(wire.rows):
+        res, consumed = rows(wire.payload, wire.lens, wire.states, wire.freq, wire.cum)
+        if not np.array_equal(consumed, wire.lens):
+            raise BitStreamError("ANS payload size mismatch (device decode)",
+                                 BitStreamError.INVALID_STREAM)
+        out[:nfull * chunk].reshape(nfull, chunk)[wire.rows] = res
+    for i, sym in wire.single:
+        out[i * chunk:(i + 1) * chunk] = sym
+    start = nfull * chunk if wire.resume is None else wire.resume * chunk
+    if start < count:
+        decode_host(out, start, count, br, chunk)
+    return out
+
+
+class Ans0Wire(NamedTuple):
+    """The full chunks of an order-0 block, parsed: a row for each chunk of
+    two symbols or more (``rows`` its chunk index; ``freq``, ``cum`` (n, 256)
+    i32; ``states`` (n, 4) i64; ``lens`` (n,) i32 payload bytes; ``payload``
+    (n, p) uint8, zero past each length, p a multiple of 16), ``single`` (k, 2)
+    i32 the chunk index and symbol of each single-symbol chunk, and ``resume``
+    the chunk from which the host decodes the rest of the block (the reader
+    at its first bit), None where the parse reached the tail."""
+    rows: np.ndarray
+    freq: np.ndarray
+    cum: np.ndarray
+    states: np.ndarray
+    lens: np.ndarray
+    payload: np.ndarray
+    single: np.ndarray
+    resume: int | None
+
+
+# the codes of hostsrc/ans0_wire.cpp's parse, raised as the Python parse raises
+_WIRE_ERRORS = {
+    2: "mesh decode: non-default log range",
+    3: "invalid ANS range",
+    4: "empty ANS alphabet",
+    5: "invalid ANS frequency size",
+    6: "invalid ANS frequency",
+    7: "invalid ANS frequencies",
+    8: "invalid ANS chunk size",
+}
+_WIRE_EOF = 1
+
+
+def parse_ans0_wire(br: BitReader, nfull: int, host_log_ranges: bool = True) -> Ans0Wire:
+    """The headers of a block's ``nfull`` full chunks from ``br`` in stream
+    order, and their payloads: one call of the port's native parse
+    (hostsrc/ans0_wire.cpp; ``launches["ans0_wire_native"]``), or, where the
+    native library is unavailable, the Python parse (``ans0_wire_py``).  Both
+    leave ``br`` after the last parsed chunk and raise the same error at the
+    same chunk."""
+    got = ans0_wire_native(br, nfull, LOG_RANGE, host_log_ranges)
+    if got is None:
+        launch.count("ans0_wire_py")
+        return _parse_py(br, nfull, host_log_ranges)
+    launch.count("ans0_wire_native")
+    err, rows, freq, cum, states, lens, payload, single, resume = got
+    if err == _WIRE_EOF:
+        raise EOFError("bitstream exhausted")
+    if err:
+        raise BitStreamError(_WIRE_ERRORS[err], BitStreamError.INVALID_STREAM)
+    return Ans0Wire(rows, freq, cum, states, lens, payload, single,
+                    None if resume < 0 else resume)
+
+
+def _parse_py(br: BitReader, nfull: int, host_log_ranges: bool) -> Ans0Wire:
+    """parse_ans0_wire in Python: each header through read_windowed and
+    entropy/ans.py _read_freqs_header."""
+    full = []     # (chunk index, freqs, states, payload bytes)
+    single = []   # (chunk index, symbol)
+    resume = None
     for i in range(nfull):
         lr = 8 + br.read_bits(3)
         if lr != LOG_RANGE:
@@ -231,46 +310,54 @@ def decode_ans0_wire(count: int, br: BitReader, rows, chunk: int = CHUNK,
             if not 8 <= lr <= 15:
                 raise BitStreamError("invalid ANS range",
                                      BitStreamError.INVALID_STREAM)
-            host_resume = (i, lr)
+            br.seek(br.read_count - 3)
+            resume = i
             break
         alpha, freqs = read_windowed(br, hans._read_freqs_header, lr)
         if len(alpha) == 0:
             raise BitStreamError("empty ANS alphabet",
                                  BitStreamError.INVALID_STREAM)
         if len(alpha) == 1:
-            single.append((i * chunk, int(alpha[0])))
+            single.append((i, int(alpha[0])))
             continue
         sz = eu.read_varint(br)
         if sz >= hans.MAX_CHUNK_SIZE:
             raise BitStreamError("invalid ANS chunk size",
                                  BitStreamError.INVALID_STREAM)
         states = [br.read_bits(32) for _ in range(4)]
-        full.append((i * chunk, freqs, states, br.read_bytes(sz)))
-    if full:
-        lens = np.array([len(m[3]) for m in full], dtype=np.int32)
-        pay = np.zeros((len(full), max(int(lens.max()), 1)), dtype=np.uint8)
-        freq = np.zeros((len(full), 256), dtype=np.int64)
-        states = np.zeros((len(full), 4), dtype=np.int64)
-        for k, m in enumerate(full):
-            pay[k, :lens[k]] = m[3]
-            freq[k] = m[1]
-            states[k] = m[2]
-        cum = np.cumsum(freq, axis=1) - freq
-        res, consumed = rows(pay, lens, states, freq, cum)
-        if not np.array_equal(consumed, lens):
-            raise BitStreamError("ANS payload size mismatch (device decode)",
-                                 BitStreamError.INVALID_STREAM)
-        for k, m in enumerate(full):
-            out[m[0]:m[0] + chunk] = res[k]
-    for start, sym in single:
-        out[start:start + chunk] = sym
+        full.append((i, freqs, states, br.read_bytes(sz)))
+    n = len(full)
+    lens = np.array([len(m[3]) for m in full], dtype=np.int32)
+    pay = np.zeros((n, max(16, (int(lens.max(initial=0)) + 15) & ~15)), dtype=np.uint8)
+    freq = np.zeros((n, 256), dtype=np.int32)
+    states = np.zeros((n, 4), dtype=np.int64)
+    for k, m in enumerate(full):
+        pay[k, :lens[k]] = m[3]
+        freq[k] = m[1]
+        states[k] = m[2]
+    return Ans0Wire(np.array([m[0] for m in full], dtype=np.int32), freq,
+                    np.cumsum(freq, axis=1, dtype=np.int32) - freq, states, lens, pay,
+                    np.array(single, dtype=np.int32).reshape(-1, 2), resume)
+
+
+def decode_host(out: np.ndarray, start: int, count: int, br: BitReader,
+                chunk: int = CHUNK) -> None:
+    """The block's chunks from byte ``start`` (a chunk's first) to ``count``
+    on the host into ``out[start:]``.  Above 32 bytes they are the wire of a
+    block of that many bytes, which the native coder decodes in one call;
+    32 bytes and under, without the native library, or where the native
+    coder refuses the stream, numpy decodes chunk by chunk (and raises what
+    the stream gives it to raise)."""
+    if count - start > 32:
+        pos = br.read_count
+        try:
+            res = ans_decode_native(count - start, br, 0, chunk)
+        except BitStreamError:
+            br.seek(pos)
+            res = None
+        if res is not None:
+            out[start:] = res
+            return
     dec = hans.ANSRangeDecoder(br, 0, chunk_size=chunk)
-    if host_resume is not None:
-        i0, lr0 = host_resume
-        dec._decode_chunk(out, i0 * chunk, min((i0 + 1) * chunk, count),
-                          br, lr=lr0)
-        for i in range(i0 + 1, nfull):
-            dec._decode_chunk(out, i * chunk, (i + 1) * chunk, br)
-    if tail:
-        dec._decode_chunk(out, nfull * chunk, count, br)
-    return out
+    for s in range(start, count, chunk):
+        dec._decode_chunk(out, s, min(s + chunk, count), br)

@@ -7,6 +7,10 @@ kernel takes, and the copies to and from the card (``to_device``,
 launched it; a wrapper adds one where it launches and nowhere else, so a run
 can show which kernels its path went through.  ``suffix_array`` counts the
 calls of ops/bwt_device.py's suffix array, which has no kernel of its own.
+It also counts the host glue's compiled paths: ``ans0_wire_native`` and
+``ans0_wire_py`` each add one a block whose ANS0 decode parsed its chunk
+headers in the port's native code or, without the native library, in Python
+(ops/ans_block.py parse_ans0_wire), on any device.
 """
 
 from __future__ import annotations

@@ -1,8 +1,9 @@
 """Loader for the C++ native runtime library.
 
-Compiles the repository's ``native/*.cpp`` on first use with g++ -O3 into
-this package's own ``_build/libkanzi_native.so`` (the sources are shared with
-the JAX package, which builds its own copy under ``native/_build``).  All
+Compiles the repository's ``native/*.cpp`` (shared with the JAX package,
+which builds its own copy under ``native/_build``) and this package's own
+``hostsrc/*.cpp`` on first use with g++ -O3 into this package's
+``_build/libkanzi_native.so``, again whenever a source is newer.  All
 native entry points are optional: every caller has a pure-Python/NumPy
 fallback so the framework still works (slowly) without a toolchain.
 """
@@ -24,7 +25,8 @@ _ROOT = os.path.dirname(_PKG)
 _SRCS = [os.path.join(_ROOT, "native", f)
          for f in ("kanzi_native.cpp", "coders.cpp", "transforms.cpp", "lz.cpp",
                    "bwt.cpp", "text.cpp", "exe.cpp", "rolz.cpp", "ans.cpp",
-                   "huffman.cpp")]
+                   "huffman.cpp")] + [
+    os.path.join(_PKG, "hostsrc", f) for f in ("ans0_wire.cpp",)]
 _BUILD_DIR = os.path.join(_PKG, "_build")
 _SO = os.path.join(_BUILD_DIR, "libkanzi_native.so")
 

@@ -139,6 +139,66 @@ def ans_decode_native(count: int, br, order: int, chunk_size: int):
     return dst[:count]
 
 
+def _ans0_wire_sigs(lib) -> bool:
+    if getattr(lib, "_ans0_wire_sigs", False):
+        return True
+    if not hasattr(lib, "kz_ans0_wire_parse"):
+        return False
+    c = ctypes
+    u8p, i32p, i64p = c.POINTER(c.c_uint8), c.POINTER(c.c_int32), c.POINTER(c.c_int64)
+    lib.kz_ans0_wire_parse.restype = c.c_int32
+    lib.kz_ans0_wire_parse.argtypes = [u8p, c.c_int64, c.c_int64, c.c_int64, c.c_int32,
+                                       c.c_int32, i32p, i32p, i32p, i64p, i32p, i64p,
+                                       i32p, i64p]
+    lib.kz_ans0_wire_gather.restype = None
+    lib.kz_ans0_wire_gather.argtypes = [u8p, c.c_int64, i64p, i32p, c.c_int64, u8p]
+    lib._ans0_wire_sigs = True
+    return True
+
+
+def ans0_wire_native(br, nfull: int, log_range: int, host_log_ranges: bool):
+    """The headers of a block's ``nfull`` full order-0 chunks parsed from
+    ``br`` in one native call (hostsrc/ans0_wire.cpp kz_ans0_wire_parse),
+    and the rows' payloads gathered into one (n, p) uint8 buffer, p the
+    longest payload rounded up to 16 bytes.  ``br`` is left after the parse.
+    Returns None when the library is unavailable, else (error code, row
+    chunk indexes, freq, cum (n, 256) i32, states (n, 4) i64, lengths (n,)
+    i32, payload, single (k, 2) i32 chunk indexes and symbols, the index of
+    the chunk the host resumes at or -1); with a non-zero code the rest is
+    what was parsed before the error."""
+    lib = _lib()
+    if lib is None or not _ans0_wire_sigs(lib):
+        return None
+    c = ctypes
+    i32p, i64p = c.POINTER(c.c_int32), c.POINTER(c.c_int64)
+    data = np.ascontiguousarray(br._data)
+    row_chunk = np.empty(nfull, dtype=np.int32)
+    freq = np.empty((nfull, 256), dtype=np.int32)
+    cum = np.empty((nfull, 256), dtype=np.int32)
+    states = np.empty((nfull, 4), dtype=np.int64)
+    lens = np.empty(nfull, dtype=np.int32)
+    pay_bit = np.empty(nfull, dtype=np.int64)
+    single = np.empty((nfull, 2), dtype=np.int32)
+    info = np.zeros(4, dtype=np.int64)
+    err = lib.kz_ans0_wire_parse(
+        as_u8p(data), br._nbits, br.read_count, nfull, log_range,
+        1 if host_log_ranges else 0, row_chunk.ctypes.data_as(i32p),
+        freq.ctypes.data_as(i32p), cum.ctypes.data_as(i32p),
+        states.ctypes.data_as(i64p), lens.ctypes.data_as(i32p),
+        pay_bit.ctypes.data_as(i64p), single.ctypes.data_as(i32p),
+        info.ctypes.data_as(i64p))
+    n, k, resume, end = (int(v) for v in info)
+    br.seek(end)
+    lens = lens[:n]
+    width = max(16, (int(lens.max(initial=0)) + 15) & ~15)
+    pay = np.empty((n, width), dtype=np.uint8)
+    if n and not err:
+        lib.kz_ans0_wire_gather(as_u8p(data), n, pay_bit.ctypes.data_as(i64p),
+                                lens.ctypes.data_as(i32p), width, as_u8p(pay))
+    return (int(err), row_chunk[:n], freq[:n], cum[:n], states[:n], lens, pay,
+            single[:k], resume)
+
+
 # --- CM / TPAQ (hooked via predictor attributes) ----------------------------
 
 def cm_encode_native(enc, block, bw) -> bool:
