@@ -205,16 +205,28 @@ Phases, one line each; any failure raises and the exit code is not 0:
      positions at once from the writer's pool, admitted one at a time;
      decoded at None, equal to L, its first block 2^30 + 33 B after the
      BWT)
+ 17  level 1 (LZX + NONE) under KANZI_TPU_DEVICE_LZ=1 on the archive of the
+     benchmark's l1_devlz_archive cell (portbench/lib/corpus.py
+     mixed_corpus(211,957,760, seed=12), its extents in their base order),
+     through BlockCompressor at 4 MiB blocks, jobs 8 (51 blocks, parsed in
+     seven batches): at most 1.05 x
+     the host parse's bytes, all 51 blocks decoded by portbench/reference,
+     the stream by the port's reader at cuda and None, lz_words and
+     lz_dispatch one a batch, lz_emit_native one a block emitted and
+     lz_emit_py none; then the same compress with a listener, the device
+     LZ parse's spans (LZ_BATCH, LZ_CARD, LZ_FETCH, LZ_EMIT) in ms per MB
+     beside the wall and the stream's self time outside LZ_BATCH
 The launch counts are set to 0 just before each of phases 3-9, each step
-of phase 12 and each stream of phases 13-16 and read just after it;
-the counts of phases 12-16 join the kernels line's.  Then the card line,
+of phase 12 and each stream of phases 13-17 and read just after it;
+the counts of phases 12-17 join the kernels line's.  Then the card line,
 one JSON line of the kernels (each with its bound: the larger of its bytes
 over 3.35 TB/s and its integer operations over 67 T/s), and the result
 line.
 ``--mesh`` runs phases 0-1 and 12 only and prints no result line;
 ``--phase14`` and ``--phase15`` run phases 0-1 and 14, or 15, the same way;
 ``--phase16`` phases 0-1 and 16 (``--phase16 e`` only the parts named, of
-abcde); ``--phase10`` phases 0 and 10 (no kernel is built).
+abcde); ``--phase17`` phases 0-1 and 17; ``--phase10`` phases 0 and 10
+(no kernel is built).
 ``--quick`` stops after phase 2 and prints no result line, for the first
 call after a kernel changes; ``--phase2 ans0,huffman`` (any of floor, ans0,
 huffman, lz_words, ans1, ksort, and ans1_compact: the compaction's part of
@@ -274,6 +286,9 @@ ANS0_KERNELS = ("ans0_hist_norm", "ans0_encode_scan", "ans0_compact", "ans0_deco
 ANS0_GLUE = ("ans0_wire_native",)
 HUFFMAN_KERNELS = ("huffman_hist", "huffman_encode", "huffman_decode")
 LZ_KERNELS = ("lz_words",)
+# the device LZX parse's counters (ops/lz_sort.py): a dispatch, and a block
+# the C++ emitter turned into the wire
+LZ_GLUE = ("lz_dispatch", "lz_emit_native")
 ANS1_KERNELS = ("ans1_scan", "ans1_compact")
 KSORT_SHAPES = ((8, 1 << 22, 2), (512, 1 << 16, 5))      # (B, N, operands), 2 keys
 # the shape of the phase-2 times: one main-path launch
@@ -2514,7 +2529,7 @@ def harness_group(dev) -> dict:
     from kanzi_tpu_torch.utils.corpus import mixed_corpus
 
     data = mixed_corpus(HARNESS_SIZE, seed=12).tobytes()
-    kernels = {1: LZ_KERNELS, 2: HUFFMAN_KERNELS, 3: HUFFMAN_KERNELS, 4: (),
+    kernels = {1: LZ_KERNELS + LZ_GLUE, 2: HUFFMAN_KERNELS, 3: HUFFMAN_KERNELS, 4: (),
                5: ANS0_KERNELS + ANS0_GLUE}
     runs = []
     for level, env, jobs, checksum in HARNESS_RUNS:
@@ -2664,7 +2679,8 @@ def multihost_group() -> dict:
     """Part e: one multihost worker process (--process-id 0 --num-processes
     1, NCCL on the loopback) through parallel/dryrun.py dryrun_multihost:
     "OK p0", its ANS0 wire equal to the host encoder's, its level-1 stream
-    round-tripped, the ANS0 encode kernels and lz_words launched in it."""
+    round-tripped, the ANS0 encode kernels, lz_words and the C++ LZX emitter
+    (lz_emit_native) counted in it."""
     import ast
 
     from kanzi_tpu_torch.parallel.dryrun import dryrun_multihost
@@ -2675,7 +2691,7 @@ def multihost_group() -> dict:
     check(line.startswith("OK p0") and "equal to the host encoder's" in line
           and "round-trip ok" in line, f"phase 15: multihost: {line}")
     got = ast.literal_eval(line.rsplit("launches ", 1)[1])
-    want = set(ANS0_KERNELS[:3] + LZ_KERNELS)
+    want = set(ANS0_KERNELS[:3] + LZ_KERNELS + LZ_GLUE[1:])
     check(set(got) == want, f"phase 15: multihost's launches {got}, want {sorted(want)}")
     return {"line": line, "launches": got}
 
@@ -2906,8 +2922,11 @@ def lz_scale_stream(label: str, data, block: int, jobs: int, dev) -> dict:
                      peak_reserved=torch.cuda.max_memory_reserved())
             check(out == raw, f"phase 16: {label}: the decode on the card differs from the input")
             del out
-            want = {"lz_words": lz_launches(sizes, jobs)}
-            check(got == want, f"phase 16: {label}: launches {got}, the gate gives {want}")
+            emitted = got.get("lz_emit_native", 0)
+            want = {"lz_words": lz_launches(sizes, jobs), "lz_dispatch": lz_launches(sizes, jobs),
+                    "lz_emit_native": emitted}
+            check(got == want and 0 < emitted <= len(sizes),
+                  f"phase 16: {label}: launches {got}, the gate gives {want}")
             r["first_group"] = first_group(raw[:block], dev, f"phase 16: {label}",
                                            timing=False)
         t3 = time.perf_counter()
@@ -3265,6 +3284,161 @@ def print_phase16(r: dict) -> None:
     print(f"phase 16: inputs made in {r['inputs_s']:.1f} s; launches {r['launches']}")
 
 
+LZ_SPANS = ("LZ_BATCH", "LZ_CARD", "LZ_FETCH", "LZ_EMIT")
+
+
+def paired(events) -> dict:
+    """{kind: [(block, t0, t1, size before, size after)]} of every span in
+    ``events``, each BEFORE_<kind> closed by the next AFTER_<kind> of its
+    block; an unpaired event fails the run."""
+    open_, out = {}, {}
+    for name, block, size, t in events:
+        when, _, kind = name.partition("_")
+        if when not in ("BEFORE", "AFTER"):
+            continue
+        if when == "BEFORE":
+            check((block, kind) not in open_, f"phase 17: {kind} of block {block} opened twice")
+            open_[(block, kind)] = (t, size)
+        else:
+            check((block, kind) in open_, f"phase 17: {kind} of block {block} closed unopened")
+            t0, s0 = open_.pop((block, kind))
+            out.setdefault(kind, []).append((block, t0, t, s0, size))
+    check(not open_, f"phase 17: unclosed spans {sorted(open_)}")
+    return out
+
+
+def phase17_l1_archive(dev) -> dict:
+    """Level 1 (LZX + NONE) under KANZI_TPU_DEVICE_LZ=1 on the archive of
+    the benchmark's l1_devlz_archive cell: its corpus, the benchmark's
+    mixed_corpus(SILESIA_SIZE, seed=12) in its base order, 4 MiB blocks,
+    jobs 8, through BlockCompressor at ``dev`` as the benchmark drives it
+    (a warm-up of eight blocks first).  Its bytes at
+    most 1.05 x the host parse's (device None); every block decoded by
+    portbench/reference (worker processes, one a core) and the stream by
+    the port's reader at ``dev`` and None; lz_words and lz_dispatch as
+    lz_launches gives, lz_emit_native one a block handed to the emitter (an
+    LZ_EMIT span of the traced run), lz_emit_py none.  Then the same
+    compress with a listener: the LZ spans (core/events.py) per MB."""
+    import dataclasses
+
+    import torch
+
+    from kanzi_tpu_torch.app.block_compressor import BlockCompressor
+    from kanzi_tpu_torch.app.block_decompressor import BlockDecompressor
+    from kanzi_tpu_torch.ops import launch
+    from portbench.lib import check as bench_check
+    from portbench.lib.corpus import mixed_corpus
+    from portbench.lib.spans import Recorder, union
+    from portbench.reference import stream as ref
+
+    t = time.perf_counter()
+    raw = mixed_corpus(SILESIA_SIZE, seed=12).tobytes()
+    r: dict = {"inputs_s": time.perf_counter() - t, "bytes_in": len(raw)}
+    sizes = [min(BLOCK, len(raw) - i) for i in range(0, len(raw), BLOCK)]
+    mb = len(raw) / 1e6
+    with env_vars(KANZI_TPU_DEVICE_LZ="1"):
+        comp = BlockCompressor("LZX", "NONE", BLOCK, jobs=8, device=dev)
+        comp.compress_bytes(raw[:8 * BLOCK])
+        torch.cuda.synchronize()
+        launch.reset_launches()
+        t = time.perf_counter()
+        blob = comp.compress_bytes(raw)
+        torch.cuda.synchronize()
+        r["compress_s"] = time.perf_counter() - t
+        got = nonzero_launches()
+        rec = Recorder()
+        comp.listeners.append(rec)
+        t0 = time.monotonic_ns()
+        traced = comp.compress_bytes(raw)
+        torch.cuda.synchronize()
+        t1 = time.monotonic_ns()
+    check(traced == blob, "phase 17: the traced compress differs from the untraced one")
+    spans = paired(rec.events)
+    check(set(LZ_SPANS) <= set(spans), f"phase 17: spans {sorted(spans)}")
+    emits = len(spans["LZ_EMIT"])
+    groups = lz_launches(sizes, 8)
+    check(got == {"lz_words": groups, "lz_dispatch": groups, "lz_emit_native": emits}
+          and 0 < emits <= len(sizes),
+          f"phase 17: launches {got}; {groups} dispatches, {emits} blocks emitted")
+    batches = spans["LZ_BATCH"]
+    check(sum(u[3] for u in batches) == len(raw) and len(batches) == -(-len(sizes) // 8),
+          f"phase 17: {len(batches)} LZ_BATCH spans of {sum(u[3] for u in batches)} B")
+    t = time.perf_counter()
+    host = BlockCompressor("LZX", "NONE", BLOCK, jobs=8, device=None).compress_bytes(raw)
+    r["host_compress_s"] = time.perf_counter() - t
+    check(len(blob) <= 1.05 * len(host),
+          f"phase 17: {len(blob)} B is over 1.05 x the host parse's {len(host)} B")
+    for name, d in (("card", dev), ("host", None)):
+        t = time.perf_counter()
+        back = BlockDecompressor(jobs=8, device=d).decompress_bytes(blob)
+        if d is not None:
+            torch.cuda.synchronize()
+        r[f"decompress_{name}_s"] = time.perf_counter() - t
+        check(back == raw, f"phase 17: the port's reader at {d} does not give S back")
+        del back
+    t = time.perf_counter()
+    st = ref.parse(blob, {"transform": "LZX", "entropy": "NONE", "block_size": BLOCK,
+                          "size": len(raw)})
+    decoded = bench_check._decode_blocks([(dataclasses.replace(st, blocks=[]), b)
+                                          for b in st.blocks])
+    bad = [i for i, (status, x) in enumerate(decoded)
+           if status != "ok" or x.tobytes() != raw[i * BLOCK:(i + 1) * BLOCK]]
+    check(len(decoded) == len(sizes) and not bad,
+          f"phase 17: the reference decodes {len(decoded)} blocks, wrong: {bad[:8]} "
+          f"{[decoded[i][1] for i in bad[:2] if decoded[i][0] != 'ok']}")
+    r["reference_s"] = time.perf_counter() - t
+
+    def per_mb(ns: int) -> float:
+        return ns / 1e6 / mb
+
+    def total(kind: str) -> int:
+        return sum(u[2] - u[1] for u in spans.get(kind, []))
+
+    def covered(*kinds) -> int:
+        return sum(b - a for a, b in union((u[1], u[2]) for k in kinds
+                                           for u in spans.get(k, [])))
+
+    inner = covered("LZ_CARD", "LZ_FETCH", "LZ_EMIT")
+    r.update(bytes_out=len(blob), host_bytes_out=len(host), blocks=len(sizes),
+             emitted=emits, dispatches=groups, batches=len(batches), launches=got,
+             wall_ms_per_mb=per_mb(t1 - t0),
+             ms_per_mb={"LZ_BATCH": per_mb(total("LZ_BATCH")),
+                        "LZ_CARD": per_mb(total("LZ_CARD")),
+                        "LZ_FETCH": per_mb(total("LZ_FETCH")),
+                        "LZ_EMIT": per_mb(total("LZ_EMIT")),
+                        "LZ_EMIT_union": per_mb(covered("LZ_EMIT")),
+                        "batch_outside_card_fetch_emit": per_mb(total("LZ_BATCH") - inner),
+                        "transform": per_mb(total("TRANSFORM")),
+                        "entropy": per_mb(total("ENTROPY")),
+                        "stream_self_outside_batch": per_mb(
+                            (t1 - t0) - covered("LZ_BATCH", "TRANSFORM", "ENTROPY"))},
+             emit_bytes=sum(u[4] for u in spans["LZ_EMIT"]),
+             fetch_bytes=sum(u[3] for u in spans["LZ_FETCH"]))
+    return r
+
+
+def print_phase17(r: dict) -> None:
+    mb = r["bytes_in"] / 1e6
+    m = r["ms_per_mb"]
+    print(f"phase 17: level 1 under KANZI_TPU_DEVICE_LZ=1 on the archive ({r['blocks']} blocks "
+          f"of 4 MiB, jobs 8): {r['bytes_in']} B -> {r['bytes_out']} B, {r['bytes_out'] / r['bytes_in']:.5f}"
+          f" of the input, {r['bytes_out'] / r['host_bytes_out']:.4f} x the host parse's "
+          f"{r['host_bytes_out']} B; MB/s compress card {mb / r['compress_s']:.2f} host parse "
+          f"{mb / r['host_compress_s']:.2f}, decompress card {mb / r['decompress_card_s']:.2f} "
+          f"host {mb / r['decompress_host_s']:.2f}; launches {r['launches']}; card {card_line()}")
+    print(f"phase 17: portbench/reference decoded all {r['blocks']} blocks to S's bytes "
+          f"({r['reference_s']:.1f} s); the port's reader at cuda and None gave S back")
+    print(f"phase 17: traced compress, ms per MB: wall {r['wall_ms_per_mb']:.3f}; LZ_BATCH "
+          f"{m['LZ_BATCH']:.3f} ({r['batches']} batches); LZ_CARD {m['LZ_CARD']:.3f} "
+          f"({r['dispatches']} dispatches); LZ_FETCH {m['LZ_FETCH']:.3f} ({r['fetch_bytes']} B); "
+          f"LZ_EMIT summed {m['LZ_EMIT']:.3f}, their union on the emitter threads "
+          f"{m['LZ_EMIT_union']:.3f} ({r['emitted']} blocks, {r['emit_bytes']} B); batch "
+          f"outside card, fetch and emit {m['batch_outside_card_fetch_emit']:.3f}; transform "
+          f"{m['transform']:.3f}, entropy {m['entropy']:.3f}; stream self outside LZ_BATCH "
+          f"{m['stream_self_outside_batch']:.3f}; lz_emit_native {r['launches']['lz_emit_native']}"
+          f" = LZ_EMIT spans, lz_emit_py 0")
+
+
 def _family(name: str) -> str:
     """Kernel family of a device event, for the level-1 profile."""
     low = name.lower()
@@ -3356,6 +3530,9 @@ def main() -> int:
                          "its parts named (of abcde)")
     ap.add_argument("--phase10", action="store_true",
                     help="run phases 0 and 10 (the device suffix array) only")
+    ap.add_argument("--phase17", action="store_true",
+                    help="run phases 0-1 and 17 (level 1 with the parse on the card on the "
+                         "benchmark's archive) only")
     ap.add_argument("--phase2", metavar="GROUPS",
                     help="run only these comma-separated phase-2 groups (of "
                          f"{', '.join(PHASE2_GROUPS)}), then stop")
@@ -3390,7 +3567,7 @@ def main() -> int:
         return 0
     plain = None
     if not (args.mesh or args.phase10 or args.phase14 or args.phase15 or args.phase16 is not None
-            or args.profile) and "ans1" in groups:
+            or args.phase17 or args.profile) and "ans1" in groups:
         plain = start_plain_ans1(dev, data)
         print("phase 1: ans1_scan's plain version started beside the build")
 
@@ -3424,6 +3601,11 @@ def main() -> int:
         t = time.perf_counter()
         print_phase16(phase16_scale(dev, args.phase16))
         print(f"phase 16: done in {time.perf_counter() - t:.1f} s")
+        return 0
+    if args.phase17:
+        t = time.perf_counter()
+        print_phase17(phase17_l1_archive(dev))
+        print(f"phase 17: done in {time.perf_counter() - t:.1f} s")
         return 0
     if args.profile:
         print(card_line())
@@ -3591,8 +3773,12 @@ def main() -> int:
     r16 = phase16_scale(dev)
     print_phase16(r16)
     print(f"phase 16: done in {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    r17 = phase17_l1_archive(dev)
+    print_phase17(r17)
+    print(f"phase 17: done in {time.perf_counter() - t:.1f} s")
     for step in [*r12["launches"].values(), *r13["launches"].values(),
-                 *r14["launches"].values(), r15["launches"], r16["launches"]]:
+                 *r14["launches"].values(), r15["launches"], r16["launches"], r17["launches"]]:
         for k, v in step.items():
             if k in launches:
                 launches[k] += v

@@ -9,9 +9,17 @@ same listeners (the port's own event types, past kanzi's): ``GLUE_WAIT``
 (asking for ops/glue.py's lock), ``GLUE_HOLD`` (holding it), ``COPY_IN``
 and ``COPY_OUT`` (one copy to or from the card, sized in bytes) and
 ``CARD_WAIT`` (the host waiting on the card's stream before a fetch).
+The device LZX parse (ops/lz_sort.py) reports four more: ``LZ_BATCH``
+(the writer's parse of a batch of pending blocks, io/stream.py),
+``LZ_CARD`` (one dispatch's upload and analysis on the card, up to the
+sync that ends it), ``LZ_FETCH`` (its tokens' copy to the host) and
+``LZ_EMIT`` (one block's wire emission on an emitter thread, under
+that block's id).
 ``encode_block``/``decode_block`` (io/stream.py) open a ``block_context``
-on their thread; ``span`` reports to it, and costs no event, clock read or
-sync on a thread without listeners.
+on their thread, the writer one for a batch's first block around its LZ
+batch; ``span`` reports to it, and costs no event, clock read or sync on
+a thread without listeners.  ``current_block`` hands the context to
+another thread that works for the same block.
 """
 
 from __future__ import annotations
@@ -45,6 +53,14 @@ class EventType(enum.Enum):
     AFTER_CARD_WAIT = 17
     BEFORE_COPY_OUT = 18
     AFTER_COPY_OUT = 19
+    BEFORE_LZ_BATCH = 20
+    AFTER_LZ_BATCH = 21
+    BEFORE_LZ_CARD = 22
+    AFTER_LZ_CARD = 23
+    BEFORE_LZ_FETCH = 24
+    AFTER_LZ_FETCH = 25
+    BEFORE_LZ_EMIT = 26
+    AFTER_LZ_EMIT = 27
 
 
 @dataclass
@@ -111,9 +127,15 @@ class block_context:
         _block.ctx = self.outer
 
 
+def current_block():
+    """This thread's (listeners, block id), or None without listeners: give
+    it to ``block_context(*ctx)`` on a thread that works for the block."""
+    return getattr(_block, "ctx", None)
+
+
 def traced() -> bool:
     """Whether this thread's block has listeners."""
-    return getattr(_block, "ctx", None) is not None
+    return current_block() is not None
 
 
 class _Span:
@@ -124,9 +146,10 @@ class _Span:
         self.kind = kind
         self.size = size
 
-    def __enter__(self) -> None:
+    def __enter__(self) -> "_Span":
         notify(self.listeners, Event(EventType["BEFORE_" + self.kind], self.block_id,
                                      self.size))
+        return self
 
     def __exit__(self, *exc) -> None:
         notify(self.listeners, Event(EventType["AFTER_" + self.kind], self.block_id,
@@ -138,7 +161,9 @@ _UNTRACED = contextlib.nullcontext()
 
 def span(kind: str, size: int = 0):
     """A context manager that reports BEFORE_<kind> and AFTER_<kind> (kind
-    ``GLUE_WAIT``, ``GLUE_HOLD``, ``COPY_IN``, ``CARD_WAIT`` or ``COPY_OUT``)
-    with ``size`` to this thread's block's listeners; nothing without them."""
+    ``GLUE_WAIT``, ``GLUE_HOLD``, ``COPY_IN``, ``CARD_WAIT``, ``COPY_OUT``
+    or one of the ``LZ_`` kinds) with ``size`` to this thread's block's
+    listeners; nothing without them.  ``with span(...) as s`` gives the
+    span, whose ``size`` the AFTER event reports, or None untraced."""
     ctx = getattr(_block, "ctx", None)
     return _UNTRACED if ctx is None else _Span(ctx, kind, size)

@@ -45,7 +45,7 @@ import numpy as np
 from ..core import magic
 from ..core.bits import BitReader, BitWriter, append_packed
 from ..core.errors import Error, IOError_
-from ..core.events import Event, EventType, HeaderInfo, block_context, notify
+from ..core.events import Event, EventType, HeaderInfo, block_context, notify, span
 from ..core.globals import (DataType, first_order_entropy_1024, histogram_order0, log2)
 from ..core.types import TransformSkip
 from ..entropy import factory as entropy_factory
@@ -533,23 +533,29 @@ class CompressedOutputStream:
         start with LZ/LZX.  Any gate but "" and "0" runs it, "legacy" too,
         as kanzi_tpu's writer does: the v1 engine is the codec's own
         dispatch (blocks this batch's hints do not cover).  A failure
-        raises: nothing falls back to the host parse."""
-        if getattr(self, "_lz_hint_fn", None) is not None:
-            # a caller that ran the per-block LZ stage itself hands each
-            # block its result
-            return self._lz_hint_fn(chunks)
-        gate = os.environ.get("KANZI_TPU_DEVICE_LZ", "0")
-        if self.device is None or gate in ("", "0"):
-            return None
-        from ..transforms.factory import (LZ_TYPE, LZX_TYPE, MASK,
-                                          MAX_SHIFT)
-        first = (self.transform_type >> MAX_SHIFT) & MASK
-        if first not in (LZ_TYPE, LZX_TYPE):
-            return None
-        from ..ops.lz_sort import lzx_forward_device_batch
-        res = lzx_forward_device_batch(chunks, first == LZX_TYPE, 4,
-                                       device=self.device)
-        return [(4, r) for r in res]
+        raises: nothing falls back to the host parse.  The batch is an
+        LZ_BATCH span of its input bytes, reported as the batch's first
+        block's (core/events.py)."""
+        # a caller that ran the per-block LZ stage itself hands each block
+        # its result
+        parse = getattr(self, "_lz_hint_fn", None)
+        if parse is None:
+            gate = os.environ.get("KANZI_TPU_DEVICE_LZ", "0")
+            if self.device is None or gate in ("", "0"):
+                return None
+            from ..transforms.factory import (LZ_TYPE, LZX_TYPE, MASK,
+                                              MAX_SHIFT)
+            first = (self.transform_type >> MAX_SHIFT) & MASK
+            if first not in (LZ_TYPE, LZX_TYPE):
+                return None
+            from ..ops.lz_sort import lzx_forward_device_batch
+
+            def parse(chs):
+                return [(4, r) for r in lzx_forward_device_batch(
+                    chs, first == LZX_TYPE, 4, device=self.device)]
+        with (block_context(self.listeners, self._block_id + 1),
+              span("LZ_BATCH", sum(c.size for c in chunks))):
+            return parse(chunks)
 
     def close(self) -> None:
         if self._closed:

@@ -10,7 +10,10 @@ calls of ops/bwt_device.py's suffix array, which has no kernel of its own.
 It also counts the host glue's compiled paths: ``ans0_wire_native`` and
 ``ans0_wire_py`` each add one a block whose ANS0 decode parsed its chunk
 headers in the port's native code or, without the native library, in Python
-(ops/ans_block.py parse_ans0_wire), on any device.
+(ops/ans_block.py parse_ans0_wire), on any device; and the device LZX
+parse's (ops/lz_sort.py): ``lz_dispatch`` one a group of blocks or rows
+sent to its device, ``lz_emit_native`` and ``lz_emit_py`` one a block
+whose tokens the C++ emitter or the numpy one turned into the wire.
 """
 
 from __future__ import annotations

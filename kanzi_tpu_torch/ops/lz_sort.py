@@ -35,6 +35,16 @@ the same bit for bit:
   - unsigned word compares are done in int64 masked to 32 bits.
 Any other handling of ties gives valid LZX that differs from the
 reference's bytes.  The decode is the host's (transforms/lz.py).
+
+Traced (core/events.py), each dispatch's upload and analysis up to the
+sync on its token count is an LZ_CARD span of its input bytes (padding
+left out), the fetch of its tokens an LZ_FETCH span of the bytes fetched,
+and each block's emission an LZ_EMIT span, opened with the block's bytes
+and closed with its LZX output's (0 when it gains nothing), on the
+emitter thread, reported as the block's: the caller's block id (a batch's
+first) plus the block's index in the batch.  ``launches`` counts
+``lz_dispatch``, a dispatch, and ``lz_emit_native`` / ``lz_emit_py``, a
+block emitted by the C++ emitter or by the numpy one (ops/launch.py).
 """
 
 from __future__ import annotations
@@ -44,7 +54,9 @@ import concurrent.futures as cf
 import numpy as np
 import torch
 
+from ..core.events import block_context, current_block, span
 from ..utils.device import check_device
+from . import launch
 from .lz_emit import MAX_DISTANCE1, MIN_BLOCK_LENGTH, _emit
 from .lz_words_cuda import lz_words
 
@@ -62,6 +74,8 @@ GROUP_ROWS = 24               # rows per windowed dispatch
 FLAT_GROUP = 8                # blocks per flat dispatch
 MAX_DISPATCH = 1 << 26        # positions per dispatch: pos << mlen_bits < 2^31
 PARSE_W = 64                  # parse window
+
+launch.register(("lz_dispatch", "lz_emit_native", "lz_emit_py"))
 
 
 def _mlen_bits() -> int:
@@ -291,9 +305,12 @@ def _parse_stage(mlen, dist, mm: int):
 
 
 def _fetch_tokens(pk, dist):
-    """Device tokens to host (pos, len, dist) int64 arrays."""
-    p, l_ = _unpack_tokens(pk.cpu().numpy())
-    return p, l_, dist.cpu().numpy().astype(np.int64)
+    """Device tokens to host (pos, len, dist) int64 arrays; an LZ_FETCH
+    span of the bytes fetched."""
+    with span("LZ_FETCH", pk.numel() * pk.element_size()
+              + dist.numel() * dist.element_size()):
+        p, l_ = _unpack_tokens(pk.cpu().numpy())
+        return p, l_, dist.cpu().numpy().astype(np.int64)
 
 
 def _flat_bucket(n: int) -> int:
@@ -382,12 +399,18 @@ def _block_max_dist(count: int) -> int:
 
 def _emit_block(src: np.ndarray, mm: int, p, l, d):
     """The LZX section stream of one block from its tokens (native emitter,
-    else numpy); None when the block gains nothing."""
+    else numpy); None when the block gains nothing.  An LZ_EMIT span."""
     md = _block_max_dist(src.size)
-    res = _emit_native(src, mm, p, l, d, md)
-    if res is False:  # no native library: numpy path
-        l = _extend_tokens_host(src, p, l, d, src.size - 18)
-        res = _emit(src, src.size, mm, md, p, l, d)
+    with span("LZ_EMIT", src.size) as sp:
+        res = _emit_native(src, mm, p, l, d, md)
+        if res is False:  # no native library: numpy path
+            l = _extend_tokens_host(src, p, l, d, src.size - 18)
+            res = _emit(src, src.size, mm, md, p, l, d)
+            launch.count("lz_emit_py")
+        else:
+            launch.count("lz_emit_native")
+        if sp is not None:
+            sp.size = 0 if res is None else res.size
     return res
 
 
@@ -404,9 +427,12 @@ def lzx_forward_device_batch(blocks, extra: bool = False,
     mm = min_match if min_match > 0 else 4
     blocks = [np.asarray(b, dtype=np.uint8) for b in blocks]
     out = [None] * len(blocks)
+    listeners, first_id = current_block() or (None, 0)
 
     def emit_one(i, p, l, d):
-        out[i] = _emit_block(blocks[i], mm, p, l, d)
+        # reported as block i of the caller's batch, on any thread
+        with block_context(listeners, first_id + i):
+            out[i] = _emit_block(blocks[i], mm, p, l, d)
 
     flat_live = [i for i, b in enumerate(blocks)
                  if MIN_BLOCK_LENGTH <= b.size <= MAX_FLAT]
@@ -432,9 +458,11 @@ def lzx_forward_device_batch(blocks, extra: bool = False,
                     bufs[j, :blocks[i].size] = blocks[i]
                     send[j] = blocks[i].size - 18
                     mdist[j] = _block_max_dist(blocks[i].size)
-                pk, dist, k = _analyze_flat(
-                    torch.from_numpy(bufs).to(dev), torch.from_numpy(send).to(dev),
-                    torch.from_numpy(mdist).to(dev), mm)
+                launch.count("lz_dispatch")
+                with span("LZ_CARD", sum(blocks[i].size for i in grp)):
+                    pk, dist, k = _analyze_flat(
+                        torch.from_numpy(bufs).to(dev), torch.from_numpy(send).to(dev),
+                        torch.from_numpy(mdist).to(dev), mm)
                 if k == 0:
                     continue
                 p, l_, d = _fetch_tokens(pk, dist)
@@ -464,8 +492,10 @@ def lzx_forward_device_batch(blocks, extra: bool = False,
         v = np.concatenate([vend[g0:g1], np.zeros(pad, np.int64)])
         f = np.concatenate([isfirst[g0:g1], np.ones(pad, bool)])
         m = np.concatenate([mdrow[g0:g1], np.zeros(pad, np.int64)])
-        pk, dist, k = _parse_stage(*_match_stage(
-            *(torch.from_numpy(a).to(dev) for a in (r, v, f, m)), mm), mm)
+        launch.count("lz_dispatch")
+        with span("LZ_CARD", (g1 - g0) * ROW):
+            pk, dist, k = _parse_stage(*_match_stage(
+                *(torch.from_numpy(a).to(dev) for a in (r, v, f, m)), mm), mm)
         if k == 0:
             continue
         p, l_, d = _fetch_tokens(pk, dist)
@@ -479,12 +509,11 @@ def lzx_forward_device_batch(blocks, extra: bool = False,
     d = np.concatenate(ds)
     base = 0
     for i in live:
-        span = parts[i][0].shape[0] * STRIDE
-        lo, hi = np.searchsorted(p, [base, base + span])
+        width = parts[i][0].shape[0] * STRIDE
+        lo, hi = np.searchsorted(p, [base, base + width])
         if hi > lo:
-            out[i] = _emit_block(blocks[i], mm, p[lo:hi] - base, l[lo:hi].copy(),
-                                 d[lo:hi])
-        base += span
+            emit_one(i, p[lo:hi] - base, l[lo:hi].copy(), d[lo:hi])
+        base += width
     return out
 
 
