@@ -282,8 +282,10 @@ REPLACES = {
 }
 ANS0_KERNELS = ("ans0_hist_norm", "ans0_encode_scan", "ans0_compact", "ans0_decode")
 # the ANS0 decode's compiled header parse (ops/ans_block.py parse_ans0_wire):
-# one count a block that the decode gate sends to the card
-ANS0_GLUE = ("ans0_wire_native",)
+# one count a block that the decode gate sends to the card; the encode's
+# compiled record writer (encode_ans0_wire): one count a block with a full
+# chunk that the encode gate sends there
+ANS0_GLUE = ("ans0_wire_native", "ans0_wire_write_native")
 HUFFMAN_KERNELS = ("huffman_hist", "huffman_encode", "huffman_decode")
 LZ_KERNELS = ("lz_words",)
 # the device LZX parse's counters (ops/lz_sort.py): a dispatch, and a block
@@ -2415,7 +2417,9 @@ def gate_launches(entropy: str, data, block: int, blob: bytes) -> dict:
     a full chunk of two or more symbols (a one-symbol chunk is a header
     only); ANS1 decodes on the host; and for ANS0, one count of the decode's
     compiled header parse (ANS0_GLUE) a block its decode gate sends to the
-    card that the stream holds entropy-coded.  Every other kernel none."""
+    card that the stream holds entropy-coded, and one of the encode's
+    compiled record writer a block its encode gate sends there.  Every other
+    kernel none."""
     out = dict.fromkeys(REPLACES, 0)
     copied = copied_blocks(blob)
     for i, start in enumerate(range(0, len(data), block)):
@@ -2430,6 +2434,7 @@ def gate_launches(entropy: str, data, block: int, blob: bytes) -> dict:
             out[k] += int(dec if k.endswith("_decode") else enc)
         if entropy == "ANS0":
             out[ANS0_GLUE[0]] = out.get(ANS0_GLUE[0], 0) + int(enc and not copied[i])
+            out[ANS0_GLUE[1]] = out.get(ANS0_GLUE[1], 0) + int(enc)
     return {k: v for k, v in out.items() if v}
 
 
@@ -2679,7 +2684,8 @@ def multihost_group() -> dict:
     """Part e: one multihost worker process (--process-id 0 --num-processes
     1, NCCL on the loopback) through parallel/dryrun.py dryrun_multihost:
     "OK p0", its ANS0 wire equal to the host encoder's, its level-1 stream
-    round-tripped, the ANS0 encode kernels, lz_words and the C++ LZX emitter
+    round-tripped, the ANS0 encode kernels, its compiled record writer
+    (ans0_wire_write_native), lz_words and the C++ LZX emitter
     (lz_emit_native) counted in it."""
     import ast
 
@@ -2691,7 +2697,7 @@ def multihost_group() -> dict:
     check(line.startswith("OK p0") and "equal to the host encoder's" in line
           and "round-trip ok" in line, f"phase 15: multihost: {line}")
     got = ast.literal_eval(line.rsplit("launches ", 1)[1])
-    want = set(ANS0_KERNELS[:3] + LZ_KERNELS + LZ_GLUE[1:])
+    want = set(ANS0_KERNELS[:3] + ANS0_GLUE[1:] + LZ_KERNELS + LZ_GLUE[1:])
     check(set(got) == want, f"phase 15: multihost's launches {got}, want {sorted(want)}")
     return {"line": line, "launches": got}
 
@@ -2819,7 +2825,8 @@ def level_launches(entropy: str, transforms: int):
     and of the decode kernel a block that the decode gate sends to the card
     and the stream holds entropy-coded (every block of these inputs has a
     chunk of two or more symbols), and for ANS0 one count of the decode's
-    compiled header parse (ANS0_GLUE) a block the card decodes."""
+    compiled header parse (ANS0_GLUE) a block the card decodes and one of
+    the encode's compiled record writer a block the card encodes."""
     def expect(blob: bytes) -> dict:
         out = dict.fromkeys(FAMILY[entropy], 0)
         for size, copied in entropy_inputs(blob, transforms):
@@ -2830,6 +2837,7 @@ def level_launches(entropy: str, transforms: int):
                 out[k] += int(dec if k.endswith("_decode") else enc)
             if entropy == "ANS0":
                 out[ANS0_GLUE[0]] = out.get(ANS0_GLUE[0], 0) + int(dec)
+                out[ANS0_GLUE[1]] = out.get(ANS0_GLUE[1], 0) + int(enc)
         return {k: v for k, v in out.items() if v}
     return expect
 
@@ -3136,9 +3144,9 @@ def start_auto_cli(s) -> dict:
 
 def finish_auto_cli(res: dict, block: int) -> dict:
     """Wait for start_auto_cli's runs and check them: the files equal, the
-    decode equal to S, ``block``-byte blocks, one device SA and one launch
-    of each ANS0 encode kernel a block at cuda, nothing at none, one
-    ans0_decode a block on the card's decode."""
+    decode equal to S, ``block``-byte blocks, one device SA, one launch of
+    each ANS0 encode kernel and one compiled record write a block at cuda,
+    nothing at none, one ans0_decode a block on the card's decode."""
     res["thread"].join()
     if "error" in res:
         raise res["error"]
@@ -3146,7 +3154,7 @@ def finish_auto_cli(res: dict, block: int) -> dict:
     check(res["equal"], "phase 16: b. the -b auto files at --device cuda and none differ")
     check(res["back_equal"], "phase 16: b. -d --device cuda of the -b auto file differs from S")
     check(res["blocks"] == blocks, f"phase 16: b. {res['blocks']} blocks, -b auto gives {blocks}")
-    want = {"suffix_array": blocks, **dict.fromkeys(ANS0_KERNELS[:3], blocks)}
+    want = {"suffix_array": blocks, **dict.fromkeys(ANS0_KERNELS[:3] + ANS0_GLUE[1:], blocks)}
     check(res["cuda"]["launches"] == want,
           f"phase 16: b. the CLI at cuda launched {res['cuda']['launches']}, want {want}")
     check(not res["none"]["launches"], f"phase 16: b. the CLI at none launched "

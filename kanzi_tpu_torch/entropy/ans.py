@@ -36,7 +36,12 @@ log range) and decode (default chunk size) of a block of at least four full
 chunk (default chunk size and log range), on the CUDA kernels (``cuda``) or
 their plain PyTorch versions (``cpu``); the minimums are the reference's.
 Every other case is the host path whatever the device; order 1 decodes on
-the host, as in the reference, which has no device decoder for it.
+the host, as in the reference, which has no device decoder for it.  On the
+order-0 device path only the rows hold ops/glue.py's GLUE_LOCK: the block's
+full-chunk records are then written from them by one native call
+(hostsrc/ans0_wire.cpp) with the GIL and the lock released, and a tail of
+more than 32 bytes by the native coder; the decode parses the block's
+headers in one native call likewise (ops/ans_block.py).
 
 Ahead of the device gate, a mesh in ``ctx["_ans0_mesh"]`` (rank 0 of
 parallel/engine.py's multi-GPU engine) takes every order-0 block of more

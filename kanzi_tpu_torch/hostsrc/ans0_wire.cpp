@@ -1,7 +1,12 @@
-// The host side of the ANS0 device decode (kanzi_tpu_torch/ops/ans_block.py
-// decode_ans0_wire): a block's full-chunk headers parsed in stream order, in
-// one call a block, and each full chunk's payload gathered, realigned, into a
-// row of the buffer the decode kernel reads.  The parse is the Python one's
+// The host side of the ANS0 device stage (kanzi_tpu_torch/ops/ans_block.py).
+// On encode, a block's full-chunk records written from the device's rows in
+// one call a block: each chunk's log range, alphabet and grouped frequencies
+// (entropy/ans.py _write_freqs_header), then, for a chunk of two symbols or
+// more, its payload size, final states and big-endian payload, bit for bit
+// as the Python writer (ops/ans_block.py assemble_ans0_wire) packs them.  On
+// decode, a block's full-chunk headers parsed in stream order, in one call a
+// block, and each full chunk's payload gathered, realigned, into a row of the
+// buffer the decode kernel reads.  The parse is the Python one's
 // (entropy/ans.py _read_freqs_header, ops/ans_block.py), check for check and
 // in the same order, so that a corrupt or truncated stream stops at the same
 // chunk with the same error; the Python side raises it from the code
@@ -18,6 +23,8 @@ namespace {
 typedef uint8_t u8;
 typedef int32_t i32;
 typedef int64_t i64;
+typedef uint16_t u16;
+typedef uint32_t u32;
 typedef uint64_t u64;
 
 // error codes, raised by ops/ans_block.py's _WIRE_ERRORS
@@ -34,6 +41,9 @@ enum {
 };
 
 const i64 MAX_CHUNK_SIZE = i64(1) << 27;
+// bytes of one chunk header at most: 3 bits of log range, an alphabet of at
+// most 263 bits, 255 values of at most 31 bits and 43 logMax of 4 bits
+const i64 WIRE_HEADER_MAX = 1100;
 
 struct Reader {
     const u8* buf; i64 nbits; i64 pos;
@@ -125,6 +135,69 @@ int read_varint(Reader& r, u64* out) {
     return OK;
 }
 
+// MSB first into a buffer the caller sized; the last byte zero-padded
+struct Writer {
+    u8* out; i64 pos; u64 acc; i32 nacc;
+    // the low n (0 <= n <= 32) bits of v
+    void put(u64 v, i32 n) {
+        acc = (acc << n) | (v & ((u64(1) << n) - 1));
+        nacc += n;
+        if (nacc >= 32) {
+            nacc -= 32;
+            const u32 w = (u32)(acc >> nacc);
+            out[pos] = (u8)(w >> 24);
+            out[pos + 1] = (u8)(w >> 16);
+            out[pos + 2] = (u8)(w >> 8);
+            out[pos + 3] = (u8)w;
+            pos += 4;
+        }
+    }
+    i64 bits() const { return 8 * pos + nacc; }
+    void finish() {
+        for (; nacc >= 8; nacc -= 8) out[pos++] = (u8)(acc >> (nacc - 8));
+        if (nacc) out[pos++] = (u8)(acc << (8 - nacc));
+        nacc = 0;
+    }
+};
+
+// EntropyUtils encode_alphabet (entropy/utils.py)
+void write_alphabet(Writer& w, const i32* alpha, i32 count) {
+    if (count == 0 || count == 256) {
+        w.put(0, 1);
+        w.put(count == 0 ? 1 : 0, 1);
+        return;
+    }
+    u8 masks[32] = {0};
+    for (i32 i = 0; i < count; i++) masks[alpha[i] >> 3] |= (u8)(1 << (alpha[i] & 7));
+    const i32 last = alpha[count - 1] >> 3;
+    w.put(1, 1);
+    w.put((u64)last, 5);
+    for (i32 i = 0; i <= last; i++) w.put(masks[i], 8);
+}
+
+// entropy/ans.py _write_freqs_header: the alphabet, then freq - 1 of every
+// symbol after the first, in groups each after its llr-bit logMax
+void write_freqs(Writer& w, i32 lr, const i32* alpha, i32 count, const i32* freq) {
+    write_alphabet(w, alpha, count);
+    if (count <= 1) return;
+    const i32 chk = count >= 64 ? 8 : 6;
+    i32 llr = 3;
+    while ((1 << llr) <= lr) llr++;
+    for (i32 i = 1; i < count; i += chk) {
+        const i32 end = i + chk < count ? i + chk : count;
+        i64 mx = 0;
+        for (i32 j = i; j < end; j++) {
+            const i64 v = (i64)freq[alpha[j]] - 1;
+            if (v > mx) mx = v;
+        }
+        i32 log_max = 0;
+        while (log_max < 32 && (mx >> log_max) != 0) log_max++;
+        w.put((u64)log_max, llr);
+        if (log_max > 0)
+            for (i32 j = i; j < end; j++) w.put((u64)((i64)freq[alpha[j]] - 1), log_max);
+    }
+}
+
 }  // namespace
 
 // Parse the headers of a block's ``nfull`` full order-0 chunks from bit
@@ -208,4 +281,48 @@ EXPORT void kz_ans0_wire_gather(const u8* src, i64 n, const i64* pay_bit,
         }
         std::memset(row + len, 0, width - len);
     }
+}
+
+// The records of a block's ``n`` full order-0 chunks, in stream order, from
+// the device's rows: ``freq`` (n, 256) each chunk's normalised table,
+// ``n_emit`` (n,) its payload words, ``states`` (n, 4) its final states and
+// ``payload`` (n, width) its words, of which the first n_emit[k] are
+// written, big-endian; 0 <= n_emit[k] <= width.  Each record: 3 bits of
+// ``lr`` - 8, the alphabet (the symbols of non-zero frequency) and grouped
+// frequencies, and, for two symbols or more, the varint byte count, the
+// four 32-bit states and the payload.  Writes MSB first into ``dst``
+// (``cap`` bytes, zero past the last bit) and returns the bits written, or
+// -1 where a record would not fit.
+EXPORT i64 kz_ans0_wire_write(const i32* freq, const i32* n_emit, const u32* states,
+                              const u16* payload, i64 n, i64 width, i32 lr, u8* dst,
+                              i64 cap) {
+    Writer w{dst, 0, 0, 0};
+    i32 alpha[256];
+    for (i64 k = 0; k < n; k++) {
+        const i32* f = freq + k * 256;
+        const i64 ne = n_emit[k];
+        // a header is under WIRE_HEADER_MAX bytes; the varint, the states,
+        // the payload and the bits still in the accumulator follow it
+        if (w.pos + WIRE_HEADER_MAX + 5 + 16 + 2 * ne + 8 > cap) return -1;
+        i32 count = 0;
+        for (i32 s = 0; s < 256; s++)
+            if (f[s] > 0) alpha[count++] = s;
+        w.put((u64)(lr - 8), 3);
+        write_freqs(w, lr, alpha, count, f);
+        if (count <= 1) continue;
+        u64 size = (u64)(2 * ne) & 0xFFFFFFFFu;   // entropy/utils.py write_varint
+        while (size >= 128) {
+            w.put(0x80 | (size & 0x7F), 8);
+            size >>= 7;
+        }
+        w.put(size, 8);
+        for (i32 j = 0; j < 4; j++) w.put(states[k * 4 + j], 32);
+        const u16* p = payload + k * width;
+        i64 t = 0;
+        for (; t + 1 < ne; t += 2) w.put(((u64)p[t] << 16) | p[t + 1], 32);
+        if (t < ne) w.put(p[t], 16);
+    }
+    const i64 bits = w.bits();
+    w.finish();
+    return bits;
 }

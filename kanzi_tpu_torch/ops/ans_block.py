@@ -18,16 +18,21 @@ the reference's:
           lookup, the encode scan and the per-tile compaction of the full
           4 MiB chunks (order 1 decodes on the host, as in the reference)
 
-Three differences: a chunk header with an empty alphabet raises, as the
+Four differences: a chunk header with an empty alphabet raises, as the
 host decoder does (entropy/ans.py), where kanzi_tpu's device glue filled
 zeros; an order-1 tail of more than 32 bytes is written by the native host
 coder, which writes the same bytes (tests/test_torch_ans1.py) as the
-reference's numpy loop of one Python step per 4 bytes; on order-0 decode, a
-block's full-chunk headers are parsed and their payloads gathered by the
-port's native parse (hostsrc/ans0_wire.cpp), one call a block with the GIL
-released, and the host's chunks of more than 32 bytes together are decoded
-by the native host coder, where the library is built
-(tests/test_torch_ans0_wire.py holds both to the numpy path).
+reference's numpy loop of one Python step per 4 bytes; on order-0 encode, a
+block's full-chunk records are written from the device's rows by the port's
+native writer (hostsrc/ans0_wire.cpp), one call a block with the GIL
+released and after GLUE_LOCK is released (the lock covers the device rows
+alone), and a tail of more than 32 bytes by the native host coder; on
+order-0 decode, a block's full-chunk headers are parsed and their payloads
+gathered by the port's native parse (hostsrc/ans0_wire.cpp), one call a
+block with the GIL released, and the host's chunks of more than 32 bytes
+together are decoded by the native host coder.  Each native path runs where
+the library is built, and writes or reads the numpy path's bytes
+(tests/test_torch_ans0_wire_write.py, tests/test_torch_ans0_wire.py).
 """
 
 from __future__ import annotations
@@ -42,7 +47,8 @@ from ..core.errors import BitStreamError
 from ..entropy import ans as hans
 from ..entropy import utils as eu
 
-from ..utils.native_coders import ans0_wire_native, ans_decode_native, ans_encode_native
+from ..utils.native_coders import (ans0_wire_native, ans0_wire_write_native,
+                                   ans_decode_native, ans_encode_native)
 from . import ans1_cuda, ans_cuda
 from .glue import glue_lock, read_windowed
 from . import launch
@@ -53,8 +59,10 @@ LOG_RANGE = ans_cuda.LOG_RANGE
 CHUNK1 = ans1_cuda.CHUNK1
 LOG_RANGE1 = ans1_cuda.LOG_RANGE1
 
-# blocks whose full-chunk headers the decode parsed natively or in Python
-launch.register(("ans0_wire_native", "ans0_wire_py"))
+# blocks whose full-chunk headers the decode parsed natively or in Python,
+# and blocks whose full-chunk records the encode wrote natively or in Python
+launch.register(("ans0_wire_native", "ans0_wire_py",
+                 "ans0_wire_write_native", "ans0_wire_write_py"))
 
 
 def assemble_ans0_wire(bw: BitWriter, freq: np.ndarray, nsym: np.ndarray,
@@ -81,19 +89,14 @@ def assemble_ans0_wire(bw: BitWriter, freq: np.ndarray, nsym: np.ndarray,
 
 def ans0_encode(block: np.ndarray, bw: BitWriter, device: torch.device) -> int:
     """ANSRangeEncoder(order=0).encode with the full chunks on ``device``.
-    The block's wire is packed into one segment under the lock, so that the
-    caller's writer does not pack its thousands of small header segments
-    outside it."""
-    with glue_lock():
-        wire = BitWriter()
-        count = _encode(block, wire, device)
-        arr, nbits = wire.getvalue_packed()
-    bw.write_bytes(arr, nbits=nbits)
-    return count
-
-
-def _encode(block: np.ndarray, bw: BitWriter, device: torch.device) -> int:
-    return encode_ans0_wire(block, bw, lambda chunks: _device_rows(chunks, device))
+    GLUE_LOCK is held around the device rows alone (upload, kernels and
+    fetches share the card's stream); the records and the tail are written
+    from the block's own arrays after its release, by the Python writer
+    too where the native library is unavailable."""
+    def rows(chunks: np.ndarray):
+        with glue_lock():
+            return _device_rows(chunks, device)
+    return encode_ans0_wire(block, bw, rows)
 
 
 def _device_rows(chunks: np.ndarray, device: torch.device):
@@ -111,9 +114,14 @@ def encode_ans0_wire(block: np.ndarray, bw: BitWriter, rows, chunk: int = CHUNK)
     """ANSRangeEncoder(order=0, chunk_size=chunk).encode of ``block`` into
     ``bw``, the full chunks through ``rows``: rows(chunks uint8 (n, chunk))
     -> (freq (n, 256), payload (n, w) u16 with w at or above every length,
-    n_emit (n,), states (n, 4)), numpy.  Blocks of at most 32 bytes and the
-    tail chunk are written on the host.  One device (``_device_rows``) or
-    the ranks of a mesh (parallel/engine.py) run the rows."""
+    n_emit (n,), states (n, 4)), numpy.  One device (``_device_rows``) or
+    the ranks of a mesh (parallel/engine.py) run the rows.  The full
+    chunks' records are written by one call of the port's native writer
+    (hostsrc/ans0_wire.cpp; ``launches["ans0_wire_write_native"]``), with
+    the GIL released, and appended as one segment, or, where the native
+    library is unavailable, by assemble_ans0_wire (``ans0_wire_write_py``).
+    Blocks of at most 32 bytes and the tail chunk are written on the host
+    (encode_tail)."""
     block = np.asarray(block, dtype=np.uint8)
     count = block.size
     if count <= 32:
@@ -123,14 +131,19 @@ def encode_ans0_wire(block: np.ndarray, bw: BitWriter, rows, chunk: int = CHUNK)
     tail = count - nfull * chunk
     if nfull > 0:
         freq, payload, n_emit, states = rows(block[:nfull * chunk].reshape(nfull, chunk))
-        freq = np.asarray(freq, dtype=np.int64)
-        nz = freq > 0
-        alphabets = [np.flatnonzero(nz[i]).astype(np.int32) for i in range(nfull)]
-        assemble_ans0_wire(bw, freq, nz.sum(axis=1), alphabets, n_emit, states,
-                           payload, np.arange(nfull))
+        got = ans0_wire_write_native(freq, n_emit, states, payload, LOG_RANGE)
+        if got is not None:
+            launch.count("ans0_wire_write_native")
+            bw.write_bytes(got[0], nbits=got[1])
+        else:
+            launch.count("ans0_wire_write_py")
+            freq = np.asarray(freq, dtype=np.int64)
+            nz = freq > 0
+            alphabets = [np.flatnonzero(nz[i]).astype(np.int32) for i in range(nfull)]
+            assemble_ans0_wire(bw, freq, nz.sum(axis=1), alphabets, n_emit, states,
+                               payload, np.arange(nfull))
     if tail:
-        hans.ANSRangeEncoder(bw, 0, chunk_size=chunk)._encode_chunk(
-            block[nfull * chunk:], bw)
+        encode_tail(block[nfull * chunk:], bw, 0, chunk)
     return count
 
 
@@ -148,7 +161,9 @@ def order1_tables(chunks: np.ndarray):
 
 def ans1_encode(block: np.ndarray, bw: BitWriter, device: torch.device) -> int:
     """ANSRangeEncoder(order=1).encode with the full 4 MiB chunks on
-    ``device``; one packed wire segment per block, as ans0_encode."""
+    ``device``; the block's wire written and packed into one segment under
+    GLUE_LOCK, so that the caller's writer does not pack its thousands of
+    small header segments outside it."""
     with glue_lock():
         wire = BitWriter()
         count = _encode1(block, wire, device)
@@ -184,18 +199,19 @@ def _encode1(block: np.ndarray, bw: BitWriter, device: torch.device) -> int:
                 bw.write_bits(int(states[i, j]), 32)
             bw.write_bytes(pay)
     if tail:
-        encode1_tail(block[nfull * CHUNK1:], bw)
+        encode_tail(block[nfull * CHUNK1:], bw, 1)
     return count
 
 
-def encode1_tail(seg: np.ndarray, bw: BitWriter) -> None:
-    """One order-1 chunk shorter than 4 MiB, as the reference writes it
+def encode_tail(seg: np.ndarray, bw: BitWriter, order: int, chunk: int = CHUNK) -> None:
+    """One chunk of ``order`` shorter than a full one (order 0: ``chunk``
+    bytes; order 1: 4 MiB), as the reference writes it
     (ANSRangeEncoder._encode_chunk); above 32 bytes the native coder writes
-    the same chunk (a block of one chunk at the default sizes)."""
-    if seg.size > 32 and ans_encode_native(seg, bw, 1, hans.DEFAULT_ANS0_CHUNK_SIZE,
-                                           hans.DEFAULT_LOG_RANGE):
+    the same chunk (a block of one chunk; at 32 bytes and under it would
+    write the block raw)."""
+    if seg.size > 32 and ans_encode_native(seg, bw, order, chunk, LOG_RANGE):
         return
-    hans.ANSRangeEncoder(bw, 1)._encode_chunk(seg, bw)
+    hans.ANSRangeEncoder(bw, order, chunk_size=chunk)._encode_chunk(seg, bw)
 
 
 def ans0_decode(count: int, br: BitReader, device: torch.device) -> np.ndarray:

@@ -152,6 +152,10 @@ def _ans0_wire_sigs(lib) -> bool:
                                        i32p, i64p]
     lib.kz_ans0_wire_gather.restype = None
     lib.kz_ans0_wire_gather.argtypes = [u8p, c.c_int64, i64p, i32p, c.c_int64, u8p]
+    lib.kz_ans0_wire_write.restype = c.c_int64
+    lib.kz_ans0_wire_write.argtypes = [i32p, i32p, c.POINTER(c.c_uint32),
+                                       c.POINTER(c.c_uint16), c.c_int64, c.c_int64,
+                                       c.c_int32, u8p, c.c_int64]
     lib._ans0_wire_sigs = True
     return True
 
@@ -197,6 +201,40 @@ def ans0_wire_native(br, nfull: int, log_range: int, host_log_ranges: bool):
                                 lens.ctypes.data_as(i32p), width, as_u8p(pay))
     return (int(err), row_chunk[:n], freq[:n], cum[:n], states[:n], lens, pay,
             single[:k], resume)
+
+
+def ans0_wire_write_native(freq, n_emit, states, payload, log_range: int):
+    """The records of a block's full order-0 chunks from the device's rows
+    (freq (n, 256), n_emit (n,), states (n, 4), payload (n, w) u16 with
+    every n_emit in [0, w]), written in one native call
+    (hostsrc/ans0_wire.cpp kz_ans0_wire_write): (packed bytes, bit count),
+    bit for bit what ops/ans_block.py assemble_ans0_wire writes.  Returns
+    None when the library is unavailable."""
+    lib = _lib()
+    if lib is None or not _ans0_wire_sigs(lib):
+        return None
+    c = ctypes
+    freq = np.ascontiguousarray(freq, dtype=np.int32)
+    n_emit = np.ascontiguousarray(n_emit, dtype=np.int32)
+    states = np.ascontiguousarray(np.asarray(states).astype(np.uint32))
+    payload = np.ascontiguousarray(payload, dtype=np.uint16)
+    n, width = payload.shape
+    if freq.shape != (n, 256) or n_emit.shape != (n,) or states.shape != (n, 4):
+        raise ValueError(f"ANS0 rows of shapes {freq.shape}, {n_emit.shape}, "
+                         f"{states.shape}, {payload.shape}")
+    if n and not 0 <= int(n_emit.min()) <= int(n_emit.max()) <= width:
+        raise ValueError(f"ANS0 payload lengths outside [0, {width}]")
+    # the writer's bound a record: a header of at most 1,100 bytes, 21 of
+    # size and states, the payload
+    cap = n * 1200 + 2 * int(n_emit.sum()) + 16
+    dst = np.empty(cap, dtype=np.uint8)
+    nbits = lib.kz_ans0_wire_write(
+        freq.ctypes.data_as(c.POINTER(c.c_int32)), n_emit.ctypes.data_as(c.POINTER(c.c_int32)),
+        states.ctypes.data_as(c.POINTER(c.c_uint32)),
+        payload.ctypes.data_as(c.POINTER(c.c_uint16)), n, width, log_range, as_u8p(dst), cap)
+    if nbits < 0:
+        raise RuntimeError("kz_ans0_wire_write: the records overran their buffer")
+    return dst[:(nbits + 7) >> 3], int(nbits)
 
 
 # --- CM / TPAQ (hooked via predictor attributes) ----------------------------

@@ -302,7 +302,7 @@ def test_tail_native_matches_numpy(size):
         bw.write_bits(5, 3)
     ANSRangeEncoder(want, 1)._encode_chunk(seg, want)
     assert ans_encode_native(seg, got, 1, 16384, 12)
-    ans_block.encode1_tail(seg, glue)
+    ans_block.encode_tail(seg, glue, 1)
     assert got.getvalue() == want.getvalue()
     assert glue.getvalue() == want.getvalue()
 
