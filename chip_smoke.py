@@ -212,9 +212,9 @@ Phases, one line each; any failure raises and the exit code is not 0:
      seven batches): at most 1.05 x
      the host parse's bytes, all 51 blocks decoded by portbench/reference,
      the stream by the port's reader at cuda and None, lz_words and
-     lz_dispatch one a batch, lz_emit_native one a block emitted and
-     lz_emit_py none; then the same compress with a listener, the device
-     LZ parse's spans (LZ_BATCH, LZ_CARD, LZ_FETCH, LZ_EMIT) in ms per MB
+     lz_dispatch one a batch, lz_emit_native one a block emitted (the C++
+     emitter, the only one); then the same compress with a listener, the
+     device LZ parse's spans (LZ_BATCH, LZ_CARD, LZ_FETCH, LZ_EMIT) in ms per MB
      beside the wall and the stream's self time outside LZ_BATCH
 The launch counts are set to 0 just before each of phases 3-9, each step
 of phase 12 and each stream of phases 13-17 and read just after it;
@@ -3324,8 +3324,8 @@ def phase17_l1_archive(dev) -> dict:
     most 1.05 x the host parse's (device None); every block decoded by
     portbench/reference (worker processes, one a core) and the stream by
     the port's reader at ``dev`` and None; lz_words and lz_dispatch as
-    lz_launches gives, lz_emit_native one a block handed to the emitter (an
-    LZ_EMIT span of the traced run), lz_emit_py none.  Then the same
+    lz_launches gives, lz_emit_native one a block handed to the C++ emitter
+    (an LZ_EMIT span of the traced run).  Then the same
     compress with a listener: the LZ spans (core/events.py) per MB."""
     import dataclasses
 
@@ -3444,7 +3444,7 @@ def print_phase17(r: dict) -> None:
           f"outside card, fetch and emit {m['batch_outside_card_fetch_emit']:.3f}; transform "
           f"{m['transform']:.3f}, entropy {m['entropy']:.3f}; stream self outside LZ_BATCH "
           f"{m['stream_self_outside_batch']:.3f}; lz_emit_native {r['launches']['lz_emit_native']}"
-          f" = LZ_EMIT spans, lz_emit_py 0")
+          f" = LZ_EMIT spans")
 
 
 def _family(name: str) -> str:

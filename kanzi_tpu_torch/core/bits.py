@@ -297,13 +297,14 @@ class BitReader:
         if self._pos + total > self._nbits:
             raise EOFError("bitstream exhausted")
         ends = np.cumsum(counts) + self._pos
-        starts = ends - counts
-        # read 8 bytes ending at each item's end (clamped)
-        data = self._data
-        padded = np.concatenate([np.zeros(8, dtype=np.uint8), data, np.zeros(8, dtype=np.uint8)])
+        # read the 8 bytes [byte_end - 8, byte_end) ending at each item's end,
+        # from a zero-padded copy of the span this call reads alone
         byte_end = (ends + 7) >> 3
-        # gather 8 bytes [byte_end-8, byte_end) from padded (offset +8)
-        idx = byte_end[:, None] + np.arange(8, dtype=np.int64)[None, :]  # padded idx
+        lo, hi = int(byte_end.min()) - 8, int(byte_end.max())
+        padded = np.zeros(hi - lo, dtype=np.uint8)
+        a, b = max(lo, 0), min(hi, self._data.size)
+        padded[a - lo:b - lo] = self._data[a:b]
+        idx = (byte_end - 8 - lo)[:, None] + np.arange(8, dtype=np.int64)[None, :]
         window = padded[idx]  # (n, 8) bytes, big-endian value ends at window end
         vals = window.astype(_U64)
         weights = (_U64(1) << (np.arange(7, -1, -1, dtype=_U64) * _U64(8)))

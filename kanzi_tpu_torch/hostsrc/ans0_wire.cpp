@@ -3,13 +3,13 @@
 // one call a block: each chunk's log range, alphabet and grouped frequencies
 // (entropy/ans.py _write_freqs_header), then, for a chunk of two symbols or
 // more, its payload size, final states and big-endian payload, bit for bit
-// as the Python writer (ops/ans_block.py assemble_ans0_wire) packs them.  On
+// as kanzi_tpu's device glue (kanzi_tpu/ops/ans_block.py) writes them.  On
 // decode, a block's full-chunk headers parsed in stream order, in one call a
 // block, and each full chunk's payload gathered, realigned, into a row of the
-// buffer the decode kernel reads.  The parse is the Python one's
-// (entropy/ans.py _read_freqs_header, ops/ans_block.py), check for check and
-// in the same order, so that a corrupt or truncated stream stops at the same
-// chunk with the same error; the Python side raises it from the code
+// buffer the decode kernel reads.  The parse is the host decoder's
+// (entropy/ans.py _read_freqs_header and ANSRangeDecoder), check for check
+// and in the same order, so that a corrupt or truncated stream stops at the
+// same chunk with the same error; ops/ans_block.py raises it from the code
 // returned here.  Built into the port's own libkanzi_native.so beside
 // native/*.cpp (utils/native.py).
 

@@ -3,9 +3,9 @@ wire bytes (entropy/ans.py), with the order-0 statistics, scan and
 compaction in the kernels of ops/ans_cuda.py, and the order-1 lookup, scan
 and compaction in those of ops/ans1_cuda.py.
 
-Counterpart of kanzi_tpu/ops/ans_block.py (assemble_ans0_wire, ans0_encode,
-ans0_decode, ans1_encode), written again in numpy.  The device/host split is
-the reference's:
+Counterpart of kanzi_tpu/ops/ans_block.py (its order-0 record writer,
+ans0_encode, ans0_decode, ans1_encode).  The device/host split is the
+reference's:
 
   host:   wire headers and varints; blocks of at most 32 bytes (raw bytes);
           the tail chunk (order 0: < 16 KiB; order 1: < 4 MiB); the order-1
@@ -30,8 +30,9 @@ alone), and a tail of more than 32 bytes by the native host coder; on
 order-0 decode, a block's full-chunk headers are parsed and their payloads
 gathered by the port's native parse (hostsrc/ans0_wire.cpp), one call a
 block with the GIL released, and the host's chunks of more than 32 bytes
-together are decoded by the native host coder.  Each native path runs where
-the library is built, and writes or reads the numpy path's bytes
+together are decoded by the native host coder.  The native writer and parse
+are the only order-0 glue: without the native library they raise
+RuntimeError.  They write and read kanzi_tpu's bytes
 (tests/test_torch_ans0_wire_write.py, tests/test_torch_ans0_wire.py).
 """
 
@@ -50,7 +51,7 @@ from ..entropy import utils as eu
 from ..utils.native_coders import (ans0_wire_native, ans0_wire_write_native,
                                    ans_decode_native, ans_encode_native)
 from . import ans1_cuda, ans_cuda
-from .glue import glue_lock, read_windowed
+from .glue import glue_lock, write_locked
 from . import launch
 from .launch import to_device, to_host
 
@@ -59,40 +60,16 @@ LOG_RANGE = ans_cuda.LOG_RANGE
 CHUNK1 = ans1_cuda.CHUNK1
 LOG_RANGE1 = ans1_cuda.LOG_RANGE1
 
-# blocks whose full-chunk headers the decode parsed natively or in Python,
-# and blocks whose full-chunk records the encode wrote natively or in Python
-launch.register(("ans0_wire_native", "ans0_wire_py",
-                 "ans0_wire_write_native", "ans0_wire_write_py"))
-
-
-def assemble_ans0_wire(bw: BitWriter, freq: np.ndarray, nsym: np.ndarray,
-                       alphabets: list, n_emit: np.ndarray,
-                       states: np.ndarray, payload: np.ndarray,
-                       rowmap: np.ndarray) -> None:
-    """Serialize per-chunk ANS0 wire records (lr, freq header, varint size,
-    4x32-bit states, big-endian u16 payload) from device-produced arrays.
-    ``rowmap[i]`` is the payload row for chunk ``i`` (single-symbol chunks
-    have no payload and are skipped)."""
-    for i in range(len(nsym)):
-        bw.write_bits(LOG_RANGE - 8, 3)
-        hans._write_freqs_header(bw, alphabets[i], freq[i], LOG_RANGE)
-        if nsym[i] <= 1:
-            continue  # skipped chunk (single symbol)
-        k = rowmap[i]
-        ne = int(n_emit[k])
-        pay = payload[k, :ne].astype(">u2").tobytes()
-        eu.write_varint(bw, len(pay))
-        for j in range(4):
-            bw.write_bits(int(states[k, j]), 32)
-        bw.write_bytes(pay)
+# blocks whose full-chunk headers the decode parsed, and blocks whose
+# full-chunk records the encode wrote, in the port's native code
+launch.register(("ans0_wire_native", "ans0_wire_write_native"))
 
 
 def ans0_encode(block: np.ndarray, bw: BitWriter, device: torch.device) -> int:
     """ANSRangeEncoder(order=0).encode with the full chunks on ``device``.
     GLUE_LOCK is held around the device rows alone (upload, kernels and
     fetches share the card's stream); the records and the tail are written
-    from the block's own arrays after its release, by the Python writer
-    too where the native library is unavailable."""
+    from the block's own arrays after its release."""
     def rows(chunks: np.ndarray):
         with glue_lock():
             return _device_rows(chunks, device)
@@ -118,10 +95,8 @@ def encode_ans0_wire(block: np.ndarray, bw: BitWriter, rows, chunk: int = CHUNK)
     the ranks of a mesh (parallel/engine.py) run the rows.  The full
     chunks' records are written by one call of the port's native writer
     (hostsrc/ans0_wire.cpp; ``launches["ans0_wire_write_native"]``), with
-    the GIL released, and appended as one segment, or, where the native
-    library is unavailable, by assemble_ans0_wire (``ans0_wire_write_py``).
-    Blocks of at most 32 bytes and the tail chunk are written on the host
-    (encode_tail)."""
+    the GIL released, and appended as one segment.  Blocks of at most 32
+    bytes and the tail chunk are written on the host (encode_tail)."""
     block = np.asarray(block, dtype=np.uint8)
     count = block.size
     if count <= 32:
@@ -131,17 +106,9 @@ def encode_ans0_wire(block: np.ndarray, bw: BitWriter, rows, chunk: int = CHUNK)
     tail = count - nfull * chunk
     if nfull > 0:
         freq, payload, n_emit, states = rows(block[:nfull * chunk].reshape(nfull, chunk))
-        got = ans0_wire_write_native(freq, n_emit, states, payload, LOG_RANGE)
-        if got is not None:
-            launch.count("ans0_wire_write_native")
-            bw.write_bytes(got[0], nbits=got[1])
-        else:
-            launch.count("ans0_wire_write_py")
-            freq = np.asarray(freq, dtype=np.int64)
-            nz = freq > 0
-            alphabets = [np.flatnonzero(nz[i]).astype(np.int32) for i in range(nfull)]
-            assemble_ans0_wire(bw, freq, nz.sum(axis=1), alphabets, n_emit, states,
-                               payload, np.arange(nfull))
+        arr, nbits = ans0_wire_write_native(freq, n_emit, states, payload, LOG_RANGE)
+        launch.count("ans0_wire_write_native")
+        bw.write_bytes(arr, nbits=nbits)
     if tail:
         encode_tail(block[nfull * chunk:], bw, 0, chunk)
     return count
@@ -161,15 +128,9 @@ def order1_tables(chunks: np.ndarray):
 
 def ans1_encode(block: np.ndarray, bw: BitWriter, device: torch.device) -> int:
     """ANSRangeEncoder(order=1).encode with the full 4 MiB chunks on
-    ``device``; the block's wire written and packed into one segment under
-    GLUE_LOCK, so that the caller's writer does not pack its thousands of
-    small header segments outside it."""
-    with glue_lock():
-        wire = BitWriter()
-        count = _encode1(block, wire, device)
-        arr, nbits = wire.getvalue_packed()
-    bw.write_bytes(arr, nbits=nbits)
-    return count
+    ``device``; the block's wire, thousands of small header segments, written
+    and packed into one segment under GLUE_LOCK (glue.write_locked)."""
+    return write_locked(bw, lambda wire: _encode1(block, wire, device))
 
 
 def _encode1(block: np.ndarray, bw: BitWriter, device: torch.device) -> int:
@@ -275,7 +236,8 @@ class Ans0Wire(NamedTuple):
     resume: int | None
 
 
-# the codes of hostsrc/ans0_wire.cpp's parse, raised as the Python parse raises
+# the codes of hostsrc/ans0_wire.cpp's parse, raised as the host decoder
+# (entropy/ans.py) raises them
 _WIRE_ERRORS = {
     2: "mesh decode: non-default log range",
     3: "invalid ANS range",
@@ -291,69 +253,19 @@ _WIRE_EOF = 1
 def parse_ans0_wire(br: BitReader, nfull: int, host_log_ranges: bool = True) -> Ans0Wire:
     """The headers of a block's ``nfull`` full chunks from ``br`` in stream
     order, and their payloads: one call of the port's native parse
-    (hostsrc/ans0_wire.cpp; ``launches["ans0_wire_native"]``), or, where the
-    native library is unavailable, the Python parse (``ans0_wire_py``).  Both
-    leave ``br`` after the last parsed chunk and raise the same error at the
-    same chunk."""
-    got = ans0_wire_native(br, nfull, LOG_RANGE, host_log_ranges)
-    if got is None:
-        launch.count("ans0_wire_py")
-        return _parse_py(br, nfull, host_log_ranges)
+    (hostsrc/ans0_wire.cpp; ``launches["ans0_wire_native"]``), which leaves
+    ``br`` after the last parsed chunk.  A header with a log range other than
+    LOG_RANGE stops the parse there (``resume``), or, with
+    ``host_log_ranges`` false, raises."""
+    err, rows, freq, cum, states, lens, payload, single, resume = ans0_wire_native(
+        br, nfull, LOG_RANGE, host_log_ranges)
     launch.count("ans0_wire_native")
-    err, rows, freq, cum, states, lens, payload, single, resume = got
     if err == _WIRE_EOF:
         raise EOFError("bitstream exhausted")
     if err:
         raise BitStreamError(_WIRE_ERRORS[err], BitStreamError.INVALID_STREAM)
     return Ans0Wire(rows, freq, cum, states, lens, payload, single,
                     None if resume < 0 else resume)
-
-
-def _parse_py(br: BitReader, nfull: int, host_log_ranges: bool) -> Ans0Wire:
-    """parse_ans0_wire in Python: each header through read_windowed and
-    entropy/ans.py _read_freqs_header."""
-    full = []     # (chunk index, freqs, states, payload bytes)
-    single = []   # (chunk index, symbol)
-    resume = None
-    for i in range(nfull):
-        lr = 8 + br.read_bits(3)
-        if lr != LOG_RANGE:
-            if not host_log_ranges:
-                raise BitStreamError("mesh decode: non-default log range",
-                                     BitStreamError.INVALID_STREAM)
-            # valid streams may use any lr in [8, 15]; the kernels are
-            # specialised to the default 12, so the rest decodes on the host
-            if not 8 <= lr <= 15:
-                raise BitStreamError("invalid ANS range",
-                                     BitStreamError.INVALID_STREAM)
-            br.seek(br.read_count - 3)
-            resume = i
-            break
-        alpha, freqs = read_windowed(br, hans._read_freqs_header, lr)
-        if len(alpha) == 0:
-            raise BitStreamError("empty ANS alphabet",
-                                 BitStreamError.INVALID_STREAM)
-        if len(alpha) == 1:
-            single.append((i, int(alpha[0])))
-            continue
-        sz = eu.read_varint(br)
-        if sz >= hans.MAX_CHUNK_SIZE:
-            raise BitStreamError("invalid ANS chunk size",
-                                 BitStreamError.INVALID_STREAM)
-        states = [br.read_bits(32) for _ in range(4)]
-        full.append((i, freqs, states, br.read_bytes(sz)))
-    n = len(full)
-    lens = np.array([len(m[3]) for m in full], dtype=np.int32)
-    pay = np.zeros((n, max(16, (int(lens.max(initial=0)) + 15) & ~15)), dtype=np.uint8)
-    freq = np.zeros((n, 256), dtype=np.int32)
-    states = np.zeros((n, 4), dtype=np.int64)
-    for k, m in enumerate(full):
-        pay[k, :lens[k]] = m[3]
-        freq[k] = m[1]
-        states[k] = m[2]
-    return Ans0Wire(np.array([m[0] for m in full], dtype=np.int32), freq,
-                    np.cumsum(freq, axis=1, dtype=np.int32) - freq, states, lens, pay,
-                    np.array(single, dtype=np.int32).reshape(-1, 2), resume)
 
 
 def decode_host(out: np.ndarray, start: int, count: int, br: BitReader,

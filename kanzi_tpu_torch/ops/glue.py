@@ -1,16 +1,14 @@
 """What the entropy stages' host glue shares (ops/ans_block.py,
-ops/huffman_block.py): one lock around a block's glue, and header parsing
-from a window of the reader."""
+ops/huffman_block.py): one lock around a block's glue, and a block's wire
+written under it as one packed segment."""
 
 from __future__ import annotations
 
 import contextlib
 import threading
 
-from ..core.bits import BitReader
+from ..core.bits import BitWriter
 from ..core.events import span
-
-HEADER_WINDOW = 1024   # an ANS0 chunk header is < 530 bytes, a Huffman one < 300
 
 # The glue is Python and numpy under the GIL.  When the stream's pool threads
 # interleave it, every numpy call hands the GIL to another thread, which
@@ -34,17 +32,14 @@ def glue_lock():
         GLUE_LOCK.release()
 
 
-def read_windowed(br: BitReader, parse, *args):
-    """``parse(sub, *args)`` on a reader over the next HEADER_WINDOW bytes of
-    ``br`` only, then advance ``br`` past what it read.  BitReader.read_bits_vec
-    copies its whole buffer on every call, which made a block's per-chunk
-    header parse quadratic; a header that runs past the window raises
-    EOFError, as a truncated stream does."""
-    pos = br.read_count
-    skip = pos & 7
-    nbits = min(br.remaining + skip, HEADER_WINDOW * 8)
-    sub = BitReader(br._data[pos >> 3:(pos >> 3) + HEADER_WINDOW], nbits=nbits,
-                    bitpos=skip)
-    res = parse(sub, *args)
-    br.seek(pos + sub.read_count - skip)
+def write_locked(bw: BitWriter, write):
+    """``write(wire)`` into a fresh BitWriter under glue_lock(), the wire
+    packed there too, so that the caller's writer does not pack its small
+    header segments outside the lock; then the packed wire appended to
+    ``bw`` as one segment.  Returns what ``write`` returned."""
+    with glue_lock():
+        wire = BitWriter()
+        res = write(wire)
+        arr, nbits = wire.getvalue_packed()
+    bw.write_bytes(arr, nbits=nbits)
     return res

@@ -16,9 +16,8 @@ device/host split is the reference's:
 
 Differences from the reference's device path, none on a valid stream: a
 header whose code lengths oversubscribe the 12-bit code space raises
-(the decode tables pack 16-bit boundaries); headers are parsed from a window
-of the reader (glue.read_windowed); each block's wire is packed into one
-segment under the glue lock.
+(the decode tables pack 16-bit boundaries); each block's wire is packed
+into one segment under the glue lock (glue.write_locked).
 """
 
 from __future__ import annotations
@@ -33,7 +32,7 @@ from ..entropy import utils as eu
 from ..entropy.expgolomb import ExpGolombEncoder
 
 from . import huffman_cuda
-from .glue import glue_lock, read_windowed
+from .glue import glue_lock, write_locked
 from .launch import to_device, to_host
 
 CHUNK = huffman_cuda.CHUNK
@@ -88,11 +87,8 @@ def huffman_encode_full(block: np.ndarray, bw: BitWriter, device: torch.device) 
     nfull = block.size // CHUNK
     if nfull < 4:
         return 0
-    with glue_lock():
-        wire = BitWriter()
-        _encode_full(block[:nfull * CHUNK].reshape(nfull, CHUNK), wire, device)
-        arr, nbits = wire.getvalue_packed()
-    bw.write_bytes(arr, nbits=nbits)
+    chunks = block[:nfull * CHUNK].reshape(nfull, CHUNK)
+    write_locked(bw, lambda wire: _encode_full(chunks, wire, device))
     return nfull * CHUNK
 
 
@@ -137,13 +133,6 @@ def _encode_full(chunks: np.ndarray, bw: BitWriter, device: torch.device) -> Non
 # decode
 # ---------------------------------------------------------------------------
 
-def _read_lengths(br: BitReader, dec: hhuf.HuffmanDecoder) -> int:
-    """dec._read_lengths() on ``br``: the chunk's alphabet into dec.alphabet,
-    its code lengths into dec.sizes; returns the alphabet size."""
-    dec.br = br
-    return dec._read_lengths()
-
-
 def huffman_decode(count: int, br: BitReader, device: torch.device) -> np.ndarray:
     """HuffmanDecoder.decode (bit-stream version 6 and later, 16 KiB chunks)
     with every full chunk of two or more symbols decoded on ``device``."""
@@ -160,7 +149,7 @@ def _decode(count: int, br: BitReader, device: torch.device) -> np.ndarray:
         if sz < 32:
             out[start:start + sz] = br.read_bytes(sz)
             continue
-        n_sym = read_windowed(br, _read_lengths, dec)
+        n_sym = dec._read_lengths()   # into dec.alphabet and dec.sizes, from br
         if n_sym == 0:
             raise BitStreamError("empty Huffman alphabet",
                                  BitStreamError.INVALID_STREAM)

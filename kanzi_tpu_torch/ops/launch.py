@@ -7,13 +7,13 @@ kernel takes, and the copies to and from the card (``to_device``,
 launched it; a wrapper adds one where it launches and nowhere else, so a run
 can show which kernels its path went through.  ``suffix_array`` counts the
 calls of ops/bwt_device.py's suffix array, which has no kernel of its own.
-It also counts the host glue's compiled paths: ``ans0_wire_native`` and
-``ans0_wire_py`` each add one a block whose ANS0 decode parsed its chunk
-headers in the port's native code or, without the native library, in Python
-(ops/ans_block.py parse_ans0_wire), on any device; and the device LZX
-parse's (ops/lz_sort.py): ``lz_dispatch`` one a group of blocks or rows
-sent to its device, ``lz_emit_native`` and ``lz_emit_py`` one a block
-whose tokens the C++ emitter or the numpy one turned into the wire.
+It also counts the host glue's compiled calls, on any device:
+``ans0_wire_native`` one a block whose ANS0 decode parsed its chunk headers
+(ops/ans_block.py parse_ans0_wire), ``ans0_wire_write_native`` one a block
+whose ANS0 encode wrote its full-chunk records (encode_ans0_wire); and the
+device LZX parse's (ops/lz_sort.py): ``lz_dispatch`` one a group of blocks
+or rows sent to its device, ``lz_emit_native`` one a block whose tokens the
+C++ emitter turned into the wire.
 """
 
 from __future__ import annotations

@@ -19,7 +19,7 @@ constants, the bucketing and the dispatch grouping are the reference's:
      entry-state maps composed by a prefix scan (see _parse_stage)
   5. an order-keeping compaction of the chosen tokens for the host fetch
   6. wire emission: native/lz.cpp kz_lzx_emit_tokens (fuse+extend+emit),
-     else ops/lz_emit.py in numpy
+     the only emitter: without the native library it raises
 
 How each XLA step of the reference is translated, so that the tokens are
 the same bit for bit:
@@ -43,8 +43,8 @@ and each block's emission an LZ_EMIT span, opened with the block's bytes
 and closed with its LZX output's (0 when it gains nothing), on the
 emitter thread, reported as the block's: the caller's block id (a batch's
 first) plus the block's index in the batch.  ``launches`` counts
-``lz_dispatch``, a dispatch, and ``lz_emit_native`` / ``lz_emit_py``, a
-block emitted by the C++ emitter or by the numpy one (ops/launch.py).
+``lz_dispatch``, a dispatch, and ``lz_emit_native``, a block emitted by
+the C++ emitter (ops/launch.py).
 """
 
 from __future__ import annotations
@@ -57,7 +57,7 @@ import torch
 from ..core.events import block_context, current_block, span
 from ..utils.device import check_device
 from . import launch
-from .lz_emit import MAX_DISTANCE1, MIN_BLOCK_LENGTH, _emit
+from .lz_emit import MAX_DISTANCE1, MIN_BLOCK_LENGTH
 from .lz_words_cuda import lz_words
 
 ROW = 1 << 18                 # 256 KiB rows
@@ -75,7 +75,7 @@ FLAT_GROUP = 8                # blocks per flat dispatch
 MAX_DISPATCH = 1 << 26        # positions per dispatch: pos << mlen_bits < 2^31
 PARSE_W = 64                  # parse window
 
-launch.register(("lz_dispatch", "lz_emit_native", "lz_emit_py"))
+launch.register(("lz_dispatch", "lz_emit_native"))
 
 
 def _mlen_bits() -> int:
@@ -321,50 +321,6 @@ def _flat_bucket(n: int) -> int:
     return b
 
 
-def _extend_tokens_host(src: np.ndarray, p: np.ndarray, l: np.ndarray,
-                        d: np.ndarray, src_end: int):
-    """Byte-exact vectorized host extension of device-capped matches, in
-    16-byte rounds.  A token may only extend into the literal gap before
-    the next token (never into the next token's coverage)."""
-    if p.size == 0:
-        return l
-    nxt = np.empty_like(p)
-    nxt[:-1] = p[1:]
-    nxt[-1] = src_end
-    room = np.minimum(nxt, src_end) - (p + l)
-    grow = l == MAX_MLEN
-    while True:
-        sel = np.flatnonzero(grow & (room > 0))
-        if sel.size == 0:
-            break
-        step = np.minimum(room[sel], 16).astype(np.int64)
-        # ragged compare of src[p+l : p+l+step] vs the match source
-        total = int(step.sum())
-        tid = np.repeat(np.arange(sel.size), step)
-        intra = np.arange(total) - np.repeat(np.cumsum(step) - step, step)
-        a = src[(p[sel] + l[sel])[tid] + intra]
-        c = src[(p[sel] + l[sel] - d[sel])[tid] + intra]
-        eq = a == c
-        # per-token leading-equal count
-        neq = np.flatnonzero(~eq)
-        firsts = np.full(sel.size, -1, np.int64)
-        if neq.size:
-            tid_neq = tid[neq]
-            off_neq = intra[neq]
-            order = np.lexsort((off_neq, tid_neq))
-            t_sorted = tid_neq[order]
-            first_mask = np.empty(t_sorted.size, bool)
-            first_mask[0] = True
-            first_mask[1:] = t_sorted[1:] != t_sorted[:-1]
-            firsts[t_sorted[first_mask]] = off_neq[order][first_mask]
-        adv = np.where(firsts >= 0, firsts, step)
-        l[sel] += adv
-        room[sel] -= adv
-        grow[:] = False
-        grow[sel] = (firsts < 0) & (step == 16)
-    return l
-
-
 def _block_rows(src: np.ndarray):
     """Host layout of one block: zero-left-padded buffer + overlapped row
     view (free as_strided), per-row valid-token budgets, first-row flag,
@@ -398,17 +354,11 @@ def _block_max_dist(count: int) -> int:
 
 
 def _emit_block(src: np.ndarray, mm: int, p, l, d):
-    """The LZX section stream of one block from its tokens (native emitter,
-    else numpy); None when the block gains nothing.  An LZ_EMIT span."""
-    md = _block_max_dist(src.size)
+    """The LZX section stream of one block from its tokens (the native
+    emitter); None when the block gains nothing.  An LZ_EMIT span."""
     with span("LZ_EMIT", src.size) as sp:
-        res = _emit_native(src, mm, p, l, d, md)
-        if res is False:  # no native library: numpy path
-            l = _extend_tokens_host(src, p, l, d, src.size - 18)
-            res = _emit(src, src.size, mm, md, p, l, d)
-            launch.count("lz_emit_py")
-        else:
-            launch.count("lz_emit_native")
+        res = _emit_native(src, mm, p, l, d, _block_max_dist(src.size))
+        launch.count("lz_emit_native")
         if sp is not None:
             sp.size = 0 if res is None else res.size
     return res
@@ -470,7 +420,7 @@ def lzx_forward_device_batch(blocks, extra: bool = False,
                     lo, hi = np.searchsorted(p, [j * bucket, (j + 1) * bucket])
                     if hi > lo:
                         futs.append(pool.submit(emit_one, i, p[lo:hi] - j * bucket,
-                                                l_[lo:hi].copy(), d[lo:hi]))
+                                                l_[lo:hi], d[lo:hi]))
         for f in futs:
             f.result()
 
@@ -512,20 +462,21 @@ def lzx_forward_device_batch(blocks, extra: bool = False,
         width = parts[i][0].shape[0] * STRIDE
         lo, hi = np.searchsorted(p, [base, base + width])
         if hi > lo:
-            emit_one(i, p[lo:hi] - base, l[lo:hi].copy(), d[lo:hi])
+            emit_one(i, p[lo:hi] - base, l[lo:hi], d[lo:hi])
         base += width
     return out
 
 
-def _emit_native(src: np.ndarray, mm: int, p, l, d,
-                 max_dist: int = MAX_DISTANCE1):
+def _emit_native(src: np.ndarray, mm: int, p, l, d, max_dist: int):
     """C++ fuse+extend+emit (native/lz.cpp kz_lzx_emit_tokens); returns
-    False when the library is unavailable, None when the block gains
-    nothing, else the stream bytes."""
+    None when the block gains nothing, else the stream bytes.  Raises
+    RuntimeError when the native library is unavailable."""
     from ..utils.native import as_u8p, get_lib
     lib = get_lib()
     if lib is None or not hasattr(lib, "kz_lzx_emit_tokens"):
-        return False
+        raise RuntimeError("the device LZX parse needs the port's native library "
+                           "(kanzi_tpu_torch/_build/libkanzi_native.so, built from "
+                           "native/lz.cpp), which is unavailable")
     import ctypes as c
     if not getattr(lib, "_lz_emit_sig", False):
         i32p = c.POINTER(c.c_int32)

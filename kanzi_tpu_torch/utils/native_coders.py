@@ -1,10 +1,12 @@
 """Bridges from the Python entropy coders to the C++ native kernels.
 
-Each function returns False/None when the native library is unavailable (or
-the coder state is not fresh), in which case the caller falls back to the
-exact (slow) Python loop.  The native kernels produce byte-identical streams
-to the Python spec; the block engine creates a fresh coder per block, so the
-one-shot state assumption holds.
+Each host coder's function returns False/None when the native library is
+unavailable (or the coder state is not fresh), in which case the caller
+falls back to the exact (slow) Python loop.  The native kernels produce
+byte-identical streams to the Python spec; the block engine creates a fresh
+coder per block, so the one-shot state assumption holds.  The ANS0 device
+glue's parse and writer (``ans0_wire_native``, ``ans0_wire_write_native``)
+have no Python loop: without the library they raise RuntimeError.
 """
 
 from __future__ import annotations
@@ -139,11 +141,16 @@ def ans_decode_native(count: int, br, order: int, chunk_size: int):
     return dst[:count]
 
 
-def _ans0_wire_sigs(lib) -> bool:
+def _ans0_wire_lib():
+    """The native library with hostsrc/ans0_wire.cpp's entry points typed;
+    raises RuntimeError where it is unavailable."""
+    lib = _lib()
+    if lib is None or not hasattr(lib, "kz_ans0_wire_parse"):
+        raise RuntimeError("the ANS0 device glue needs the port's native library "
+                           "(kanzi_tpu_torch/_build/libkanzi_native.so, built from "
+                           "hostsrc/ans0_wire.cpp), which is unavailable")
     if getattr(lib, "_ans0_wire_sigs", False):
-        return True
-    if not hasattr(lib, "kz_ans0_wire_parse"):
-        return False
+        return lib
     c = ctypes
     u8p, i32p, i64p = c.POINTER(c.c_uint8), c.POINTER(c.c_int32), c.POINTER(c.c_int64)
     lib.kz_ans0_wire_parse.restype = c.c_int32
@@ -157,7 +164,7 @@ def _ans0_wire_sigs(lib) -> bool:
                                        c.POINTER(c.c_uint16), c.c_int64, c.c_int64,
                                        c.c_int32, u8p, c.c_int64]
     lib._ans0_wire_sigs = True
-    return True
+    return lib
 
 
 def ans0_wire_native(br, nfull: int, log_range: int, host_log_ranges: bool):
@@ -165,14 +172,11 @@ def ans0_wire_native(br, nfull: int, log_range: int, host_log_ranges: bool):
     ``br`` in one native call (hostsrc/ans0_wire.cpp kz_ans0_wire_parse),
     and the rows' payloads gathered into one (n, p) uint8 buffer, p the
     longest payload rounded up to 16 bytes.  ``br`` is left after the parse.
-    Returns None when the library is unavailable, else (error code, row
-    chunk indexes, freq, cum (n, 256) i32, states (n, 4) i64, lengths (n,)
-    i32, payload, single (k, 2) i32 chunk indexes and symbols, the index of
-    the chunk the host resumes at or -1); with a non-zero code the rest is
-    what was parsed before the error."""
-    lib = _lib()
-    if lib is None or not _ans0_wire_sigs(lib):
-        return None
+    Returns (error code, row chunk indexes, freq, cum (n, 256) i32, states
+    (n, 4) i64, lengths (n,) i32, payload, single (k, 2) i32 chunk indexes
+    and symbols, the index of the chunk the host resumes at or -1); with a
+    non-zero code the rest is what was parsed before the error."""
+    lib = _ans0_wire_lib()
     c = ctypes
     i32p, i64p = c.POINTER(c.c_int32), c.POINTER(c.c_int64)
     data = np.ascontiguousarray(br._data)
@@ -208,11 +212,9 @@ def ans0_wire_write_native(freq, n_emit, states, payload, log_range: int):
     (freq (n, 256), n_emit (n,), states (n, 4), payload (n, w) u16 with
     every n_emit in [0, w]), written in one native call
     (hostsrc/ans0_wire.cpp kz_ans0_wire_write): (packed bytes, bit count),
-    bit for bit what ops/ans_block.py assemble_ans0_wire writes.  Returns
-    None when the library is unavailable."""
-    lib = _lib()
-    if lib is None or not _ans0_wire_sigs(lib):
-        return None
+    bit for bit what kanzi_tpu's device glue (kanzi_tpu/ops/ans_block.py)
+    writes."""
+    lib = _ans0_wire_lib()
     c = ctypes
     freq = np.ascontiguousarray(freq, dtype=np.int32)
     n_emit = np.ascontiguousarray(n_emit, dtype=np.int32)

@@ -1,11 +1,12 @@
 """The ANS0 encode's native record writer (kanzi_tpu_torch/hostsrc/ans0_wire.cpp
-kz_ans0_wire_write, through ops/ans_block.py encode_ans0_wire) against the
-Python writer it replaces, which runs where the native library is withheld
-(the native_coders ``_lib()``-is-None path): the same bytes and bit count
-from the same device rows, the host encoder's bytes, a wire that the host
-decoder and decode_ans0_wire read back, the tail through the native coder
-above 32 bytes only, one counter a block, and GLUE_LOCK held around the
-device rows alone."""
+kz_ans0_wire_write, through ops/ans_block.py encode_ans0_wire) against
+kanzi_tpu's device glue writer (kanzi_tpu/ops/ans_block.py
+assemble_ans0_wire, with kanzi_tpu's host encoder for the tail): the same
+bytes and bit count from the same device rows, the host encoder's bytes, a
+wire that the host decoder and decode_ans0_wire read back, the tail through
+the native coder above 32 bytes only, one counter a block, GLUE_LOCK held
+around the device rows alone, and RuntimeError, with nothing written, where
+the native library is withheld."""
 
 from __future__ import annotations
 
@@ -14,6 +15,10 @@ import io
 import numpy as np
 import pytest
 
+from kanzi_tpu.core.bits import BitWriter as JBitWriter
+from kanzi_tpu.entropy import ans as jhans
+from kanzi_tpu.io.stream import CompressedOutputStream as JCompressedOutputStream
+from kanzi_tpu.ops import ans_block as jans_block
 from kanzi_tpu_torch.app.block_compressor import LEVELS
 from kanzi_tpu_torch.core.bits import BitReader, BitWriter
 from kanzi_tpu_torch.entropy import ans as hans
@@ -23,7 +28,6 @@ from kanzi_tpu_torch.utils import native_coders
 from kanzi_tpu_torch.utils.corpus import mixed_corpus
 
 CHUNK = 16384
-WRITE_KEYS = ("ans0_wire_write_native", "ans0_wire_write_py")
 
 
 @pytest.fixture
@@ -90,14 +94,31 @@ def _layout(rows, layout: str, rng):
     return freq, payload, n_emit, states
 
 
-def _encode(block: np.ndarray, rows) -> tuple[bytes, int, dict]:
+def _encode(block: np.ndarray, rows) -> tuple[bytes, int, int]:
     """encode_ans0_wire of ``block`` with ``rows``: (wire bytes, bits, the
-    writer counters' increments)."""
-    before = {k: launch.launches[k] for k in WRITE_KEYS}
+    writer counter's increment)."""
+    before = launch.launches["ans0_wire_write_native"]
     bw = BitWriter()
     assert ans_block.encode_ans0_wire(block, bw, rows) == block.size
     arr, nbits = bw.getvalue_packed()
-    return arr.tobytes(), nbits, {k: launch.launches[k] - before[k] for k in WRITE_KEYS}
+    return arr.tobytes(), nbits, launch.launches["ans0_wire_write_native"] - before
+
+
+def _reference(block: np.ndarray, rows) -> tuple[bytes, int]:
+    """kanzi_tpu's wire of ``block`` from the same rows: its
+    assemble_ans0_wire for the full chunks, its host encoder for the tail."""
+    freq, payload, n_emit, states = rows
+    nfull = len(n_emit)
+    freq = np.asarray(freq, dtype=np.int64)
+    nz = freq > 0
+    bw = JBitWriter()
+    jans_block.assemble_ans0_wire(bw, freq, nz.sum(axis=1),
+                                  [np.flatnonzero(r).astype(np.int32) for r in nz],
+                                  n_emit, states, payload, np.arange(nfull))
+    if block.size > nfull * CHUNK:
+        jhans.ANSRangeEncoder(bw, 0)._encode_chunk(block[nfull * CHUNK:], bw)
+    arr, nbits = bw.getvalue_packed()
+    return arr.tobytes(), nbits
 
 
 def _decode_rows(pay, lens, states, freq, cum):
@@ -106,11 +127,12 @@ def _decode_rows(pay, lens, states, freq, cum):
 
 @pytest.mark.parametrize("case", CASES, ids=[c[0] for c in CASES])
 def test_native_write_matches_python(case, no_native, monkeypatch):
-    """The native writer's wire equals the Python writer's from the same
-    rows, byte for byte and bit count for bit count, and the host
-    encoder's; it reads back through the host decoder and through
-    decode_ans0_wire; a tail of more than 32 bytes, and only such a tail,
-    goes through the native coder."""
+    """The native writer's wire equals kanzi_tpu's from the same rows, byte
+    for byte and bit count for bit count, and the host encoder's; it reads
+    back through the host decoder and through decode_ans0_wire; a tail of
+    more than 32 bytes, and only such a tail, goes through the native
+    coder; without the native library the encode raises and writes
+    nothing."""
     _, segs, layout = case
     block = np.concatenate(segs)
     nfull = block.size // CHUNK
@@ -123,14 +145,12 @@ def test_native_write_matches_python(case, no_native, monkeypatch):
     monkeypatch.setattr(ans_block, "ans_encode_native",
                         lambda seg, *a: tails.append(seg.size) or real(seg, *a))
     native = _encode(block, lambda chunks: rows)
-    assert native[2] == {"ans0_wire_write_native": 1, "ans0_wire_write_py": 0}
+    assert native[2] == 1
     assert tails == ([tail] if tail > 32 else [])
 
-    no_native()
-    py = _encode(block, lambda chunks: rows)
-    assert py[2] == {"ans0_wire_write_native": 0, "ans0_wire_write_py": 1}
-    assert native[1] == py[1]
-    assert native[0] == py[0]
+    ref = _reference(block, rows)
+    assert native[1] == ref[1]
+    assert native[0] == ref[0]
     hw = BitWriter()
     hans.ANSRangeEncoder(hw, 0).encode(block)
     assert native[0] == hw.getvalue()
@@ -139,6 +159,11 @@ def test_native_write_matches_python(case, no_native, monkeypatch):
     assert np.array_equal(hans.ANSRangeDecoder(BitReader(wire), 0).decode(block.size), block)
     assert np.array_equal(ans_block.decode_ans0_wire(block.size, BitReader(wire), _decode_rows),
                           block)
+    no_native()
+    bw = BitWriter()
+    with pytest.raises(RuntimeError, match="native library"):
+        ans_block.encode_ans0_wire(block, bw, lambda chunks: rows)
+    assert bw.getvalue() == b""
 
 
 def test_rows_outside_their_width_raise():
@@ -165,11 +190,17 @@ def _level5(nblocks: int, device) -> bytes:
 
 def test_level5_blocks_on_cpu(no_native, monkeypatch):
     """Two level-5 blocks of mixed_corpus through ans0_encode(..., "cpu")
-    (the kernels' plain versions): the stream equals the host coders', with
-    the native writer and without the library, and reads back; one count a
-    block on the writer that ran."""
+    (the kernels' plain versions): the stream equals the host coders' and
+    kanzi_tpu's host stream, and reads back; one count a block on the
+    native writer; without the library the encode raises RuntimeError."""
     data = mixed_corpus(2 * (1 << 20), seed=12).tobytes()
     host = _level5(2, None)
+    t, e, _ = LEVELS[5]
+    ref = io.BytesIO()
+    with JCompressedOutputStream(ref, {"transform": t, "entropy": e, "blockSize": 1 << 20,
+                                       "jobs": 1}) as cos:
+        cos.write(data)
+    assert ref.getvalue() == host
     sizes = []
     real = ans_block.encode_ans0_wire
     monkeypatch.setattr(ans_block, "encode_ans0_wire",
@@ -178,22 +209,24 @@ def test_level5_blocks_on_cpu(no_native, monkeypatch):
     def encode():
         launch.reset_launches()
         blob = _level5(2, "cpu")
-        return blob, tuple(launch.launches[k] for k in WRITE_KEYS)
+        return blob, launch.launches["ans0_wire_write_native"]
 
-    assert encode() == (host, (2, 0))
+    assert encode() == (host, 2)
     assert len(sizes) == 2 and min(sizes) >= 4 * CHUNK and all(s % CHUNK for s in sizes)
     with CompressedInputStream(io.BytesIO(host), {"jobs": 1}, device=None) as cis:
         assert cis.read(-1) == data
     no_native()
-    assert encode() == (host, (0, 2))
+    with pytest.raises(RuntimeError, match="native library"):
+        encode()
+    assert launch.launches["ans0_wire_write_native"] == 0
 
 
 def test_counter_and_lock_a_block(no_native, monkeypatch):
-    """A block through ans0_encode adds one to ans0_wire_write_native, or
-    one to ans0_wire_write_py when the library is withheld; a block of 32
-    bytes or less writes no record and counts nothing.  GLUE_LOCK is held
-    while the device rows run and released before the records are
-    written."""
+    """A block through ans0_encode adds one to ans0_wire_write_native;
+    withheld, the library's absence raises, writes nothing and counts
+    nothing; a block of 32 bytes or less writes no record and counts
+    nothing, with or without the library.  GLUE_LOCK is held while the
+    device rows run and released before the records are written."""
     rng = np.random.default_rng(5)
     block = np.concatenate([_chunk(n, rng) for n in (1, 7, 1, 200)]
                            + [_chunk(3, rng, size=100)])
@@ -203,19 +236,25 @@ def test_counter_and_lock_a_block(no_native, monkeypatch):
                         lambda *a: held.append(("rows", glue.GLUE_LOCK.locked())) or rows(*a))
     monkeypatch.setattr(ans_block, "ans0_wire_write_native",
                         lambda *a: held.append(("write", glue.GLUE_LOCK.locked())) or write(*a))
-    hw = BitWriter()
-    hans.ANSRangeEncoder(hw, 0).encode(block)
-    for native, key in ((True, "ans0_wire_write_native"), (False, "ans0_wire_write_py")):
+    hw = JBitWriter()
+    jhans.ANSRangeEncoder(hw, 0).encode(block)
+    for native in (True, False):
         if not native:
             no_native()
         before = dict(launch.launches)
         bw = BitWriter()
-        assert ans_block.ans0_encode(block, bw, "cpu") == block.size
-        assert bw.getvalue() == hw.getvalue()
+        if native:
+            assert ans_block.ans0_encode(block, bw, "cpu") == block.size
+            assert bw.getvalue() == hw.getvalue()
+        else:
+            with pytest.raises(RuntimeError, match="native library"):
+                ans_block.ans0_encode(block, bw, "cpu")
+            assert bw.getvalue() == b""
         small = BitWriter()
         assert ans_block.ans0_encode(block[:20], small, "cpu") == 20
         assert small.getvalue() == block[:20].tobytes()
         diff = {k: launch.launches[k] - before.get(k, 0) for k in launch.launches}
-        assert {k: v for k, v in diff.items() if v} == {key: 1}
+        assert {k: v for k, v in diff.items() if v} == (
+            {"ans0_wire_write_native": 1} if native else {})
     assert held == [("rows", True), ("write", False)] * 2
     assert not glue.GLUE_LOCK.locked()

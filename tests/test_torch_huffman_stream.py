@@ -166,6 +166,28 @@ def test_bad_header_rejected(lengths, match):
         huffman_block.huffman_decode(CHUNK, br, "cpu")
 
 
+def test_read_bits_vec_on_a_large_reader():
+    """BitReader.read_bits_vec, which the Huffman glue's header reads now
+    run on the block's own reader, copies only the bytes its call reads: on
+    a 1 MiB + 5 B reader it equals per-item read_bits at the start, in the
+    middle and over the last bits, and a read past the end raises
+    EOFError."""
+    rng = np.random.default_rng(31)
+    data = rng.integers(0, 256, (1 << 20) + 5, dtype=np.uint8)
+    nbits = data.size * 8 - 3
+    counts = rng.integers(0, 57, 40)
+    counts[0] = 56             # unaligned, its first bits in the window's first byte
+    total = int(counts.sum())
+    for pos in (0, 5, nbits // 2 + 3, nbits - total):
+        vec = BitReader(data, nbits=nbits, bitpos=pos)
+        one = BitReader(data, nbits=nbits, bitpos=pos)
+        got = vec.read_bits_vec(counts)
+        assert got.tolist() == [one.read_bits(int(c)) for c in counts], pos
+        assert vec.read_count == one.read_count == pos + total
+    with pytest.raises(EOFError):
+        BitReader(data, nbits=nbits, bitpos=nbits - total + 1).read_bits_vec(counts)
+
+
 _LZX_STREAM = """
 import io, sys
 from kanzi_tpu_torch.utils.corpus import mixed_corpus

@@ -5,8 +5,10 @@ LZ_BATCH span of its bytes, reported as its first block's, with LZ_CARD,
 LZ_FETCH and LZ_EMIT inside it (the windowed engine's too); the codec's
 per-block dispatch at level 3 reports the same inner spans inside the
 block's transform span; untraced, no Event is built; a listener changes no
-byte; lz_dispatch, lz_emit_native and lz_emit_py count the groups and the
-emitter that ran."""
+byte; lz_dispatch and lz_emit_native count the groups and the blocks
+emitted; the C++ emitter writes what kanzi_tpu's numpy extension and
+emission (kanzi_tpu/ops/lz_sort.py _extend_tokens_host, ops/lz_tpu.py
+_emit) write from the same tokens."""
 
 from __future__ import annotations
 
@@ -16,6 +18,8 @@ import threading
 import numpy as np
 import pytest
 
+from kanzi_tpu.ops import lz_sort as J
+from kanzi_tpu.ops import lz_tpu as JT
 from kanzi_tpu_torch.core import events
 from kanzi_tpu_torch.io import stream as kstream
 from kanzi_tpu_torch.io.stream import CompressedInputStream, CompressedOutputStream
@@ -125,7 +129,7 @@ def level1(request):
         mp.setattr(T, "_fetch_tokens", spy)
         launch.reset_launches()
         blob = compress(L1, jobs, rec)
-        counts = {k: launch.launches[k] for k in ("lz_dispatch", "lz_emit_native", "lz_emit_py")}
+        counts = {k: launch.launches[k] for k in ("lz_dispatch", "lz_emit_native")}
     want = {i: n for idx in batches(jobs) for i, n in emitted(idx).items()}
     return {"jobs": jobs, "blob": blob, "spans": pair(rec.events), "counts": counts,
             "fetched": fetched, "emitted": want}
@@ -166,7 +170,6 @@ def test_counters_follow_the_grouping_and_the_emitter(level1):
     # jobs 2: the batches [0, 1], [2, 3] and the tail alone, which none takes
     assert c["lz_dispatch"] == len(level1["spans"]["LZ_CARD"]) == (2 if level1["jobs"] == 2 else 1)
     assert c["lz_emit_native"] == len(level1["spans"]["LZ_EMIT"]) == len(level1["emitted"])
-    assert c["lz_emit_py"] == 0
 
 
 def test_listeners_change_no_byte(level1):
@@ -175,11 +178,30 @@ def test_listeners_change_no_byte(level1):
 
 
 def test_numpy_emitter_is_counted_and_writes_the_same_bytes(level1, monkeypatch):
-    monkeypatch.setattr(T, "_emit_native", lambda *a, **k: False)
+    """Each block the batch hands to the C++ emitter: its bytes equal what
+    kanzi_tpu's numpy extension (_extend_tokens_host) and emission
+    (lz_tpu._emit) write from the same tokens; one count a block."""
+    got = []
+    real = T._emit_native
+
+    def spy(src, mm, p, l, d, max_dist):
+        toks = (p.copy(), l.copy(), d.copy())
+        res = real(src, mm, p, l, d, max_dist)
+        got.append((src, mm, max_dist, toks, res))
+        return res
+
+    monkeypatch.setattr(T, "_emit_native", spy)
     launch.reset_launches()
     assert compress(L1, level1["jobs"]) == level1["blob"]
-    assert launch.launches["lz_emit_py"] == len(level1["emitted"])
-    assert launch.launches["lz_emit_native"] == 0
+    assert launch.launches["lz_emit_native"] == len(level1["emitted"]) == len(got)
+    assert any(res is not None for *_, res in got)
+    for src, mm, max_dist, (p, l, d), res in got:
+        p, l, d = (np.asarray(a, np.int64) for a in (p, l, d))
+        l = J._extend_tokens_host(src, p, l, d, src.size - 18)
+        ref = JT._emit(src, src.size, mm, max_dist, p, l, d)
+        assert (res is None) == (ref is None)
+        if res is not None:
+            assert np.array_equal(res, ref)
 
 
 def test_windowed_rows_are_one_card_span_of_their_rows(monkeypatch):

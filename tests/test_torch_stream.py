@@ -109,8 +109,8 @@ def test_short_chunk_payload_rejected():
     nz = freq > 0
     alphabets = [np.flatnonzero(r).astype(np.int32) for r in nz]
     bw = BitWriter()
-    ans_block.assemble_ans0_wire(bw, freq, nz.sum(1), alphabets, n_emit - [1, 0],
-                                 states, payload, np.arange(2))
+    jblock.assemble_ans0_wire(bw, freq, nz.sum(1), alphabets, n_emit - [1, 0],
+                              states, payload, np.arange(2))
     br = BitReader(np.frombuffer(bw.getvalue(), np.uint8))
     with pytest.raises(BitStreamError, match="size mismatch"):
         ans_block.ans0_decode(2 * CHUNK, br, "cpu")
